@@ -1,0 +1,116 @@
+"""SparseTensor: padded-COO sparse tensor with an explicit validity mask.
+
+``indices (cap, ndim) int32``, ``values (cap,)`` and ``valid (cap,) bool``. Padded entries carry index 0
+and value 0, so gathers stay in bounds and linear reductions are unaffected;
+the mask guards the nonlinear paths. Storage is Θ(cap) = Θ(m), never
+Θ(rows).
+
+The CCSR row-block bucket patterns (``repro_torch.sparse.ccsr``) are cached
+per ``(mode, block_rows)`` and shared by reference across ``with_values``
+derivations: the Ω pattern is the same, only the values are re-gathered.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core.utils import pad_axis
+
+
+@dataclasses.dataclass
+class SparseTensor:
+    indices: torch.Tensor  # (cap, ndim) int32
+    values: torch.Tensor   # (cap,)
+    valid: torch.Tensor    # (cap,) bool
+    shape: Tuple[int, ...]
+    nnz: Optional[int] = None          # global nonzero count hint
+    sorted_mode: Optional[int] = None  # mode by which entries are sorted
+    _pattern_cache: Optional[dict] = dataclasses.field(
+        default=None, repr=False, compare=False)
+
+    # -- basic properties ---------------------------------------------------
+    @property
+    def cap(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def mask(self) -> torch.Tensor:
+        """(cap,) validity mask."""
+        return self.valid
+
+    def masked_values(self) -> torch.Tensor:
+        return torch.where(self.valid, self.values, 0)
+
+    # -- constructors ---------------------------------------------------------
+    @classmethod
+    def from_coo(cls, indices, values, shape, cap: Optional[int] = None,
+                 device=None) -> "SparseTensor":
+        indices = torch.as_tensor(indices, dtype=torch.int32, device=device)
+        values = torch.as_tensor(values, device=indices.device)
+        nnz = int(indices.shape[0])
+        if cap is None:
+            cap = max(nnz, 1)
+        valid = torch.arange(cap, device=indices.device) < nnz
+        indices = pad_axis(indices, cap, axis=0, value=0)
+        values = pad_axis(values, cap, axis=0, value=0)
+        return cls(indices, values, valid, tuple(int(s) for s in shape), nnz)
+
+    # -- transformations ------------------------------------------------------
+    def sort_by_mode(self, mode: int) -> "SparseTensor":
+        """Sort entries so that ``indices[:, mode]`` is non-decreasing, with
+        padded entries moved to the end (they sort to ``shape[mode]``)."""
+        key = torch.where(self.valid, self.indices[:, mode],
+                          self.shape[mode])
+        perm = torch.sort(key, stable=True).indices
+        return SparseTensor(self.indices[perm], self.values[perm],
+                            self.valid[perm], self.shape, self.nnz,
+                            sorted_mode=mode)
+
+    def with_values(self, values: torch.Tensor) -> "SparseTensor":
+        """Same pattern, new values (zeroed on padding). Shares the cached
+        bucket patterns."""
+        return SparseTensor(self.indices, torch.where(self.valid, values, 0),
+                            self.valid, self.shape, self.nnz,
+                            self.sorted_mode,
+                            _pattern_cache=self._pattern_cache)
+
+    def row_buckets(self, mode: int, block_rows: int):
+        """Cached CCSR bucket view over ``mode`` (``repro_torch.sparse.ccsr``).
+
+        The pattern is built once per ``(mode, block_rows)`` (normally at
+        ingest, ``data.pipeline.CompletionDataset``) and reused across
+        ``with_values`` derivations; each call re-gathers the current values
+        through it."""
+        if self._pattern_cache is None:
+            self._pattern_cache = {}
+        key = (int(mode), int(block_rows))
+        pat = self._pattern_cache.get(key)
+        if pat is None:
+            from repro_torch.sparse.ccsr import bucket_pattern
+            pat = bucket_pattern(self, mode, block_rows)
+            self._pattern_cache[key] = pat
+        return pat.gather(self)
+
+    def attach_pattern(self, mode: int, block_rows: int, pattern) -> None:
+        """Install an externally built bucket pattern so later
+        ``row_buckets`` calls skip the build."""
+        if self._pattern_cache is None:
+            self._pattern_cache = {}
+        self._pattern_cache[(int(mode), int(block_rows))] = pattern
+
+    def todense(self) -> torch.Tensor:
+        """Materialize (small tensors / tests only); duplicates are summed."""
+        out = torch.zeros(self.shape, dtype=self.values.dtype,
+                          device=self.device)
+        idx = tuple(self.indices[:, d].long() for d in range(self.ndim))
+        return out.index_put_(idx, self.masked_values(), accumulate=True)

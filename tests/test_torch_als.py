@@ -1,0 +1,194 @@
+"""Parity of the PyTorch port's implicit-CG ALS with the JAX package's LOCAL
+runs (never a mesh run: the reference's mesh path is no oracle on this jax).
+
+Inputs come from a numpy seed (a function-tensor-like sample, shuffled with
+COO padding) and feed both packages. The tolerance is the reference's own,
+rtol = atol = 1e-4: CG carries the two packages' different summation orders
+through its iterations, and on these problems the factors still agree to
+better than 3e-5. Both of the port's matvec routes (the fused CG-matvec
+kernel's plain version and TTTP + bucketed MTTKRP) are held to it."""
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.completion import als as jals
+from repro.core.sparse_tensor import SparseTensor as JSparseTensor
+
+# the port lives in port/ (beside src/, which holds only the JAX package)
+PORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "port")
+sys.path.insert(0, PORT)
+
+from repro_torch import interop
+from repro_torch.core.completion import als
+from repro_torch.launch import complete
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+LAM, CG_TOL, CG_ITERS = 1e-5, 1e-4, 12
+PATHS = ["fused", "tttp_mttkrp"]
+ORDERS = {3: ((30, 25, 20), 1500, 6), 4: ((14, 12, 10, 8), 1200, 5)}
+
+
+def _arrays(seed, shape, nnz, r):
+    """Shuffled padded COO of a smooth function sample, plus factors."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([rng.integers(0, s, nnz) for s in shape], 1) \
+        .astype(np.int32)
+    grids = [rng.uniform(-1, 1, s) for s in shape]
+    arg = sum(g[idx[:, d]] for d, g in enumerate(grids))
+    vals = (1 / (1 + np.exp(-3 * arg))).astype(np.float32)
+    cap = nnz + 17
+    perm = rng.permutation(cap)
+    pad = lambda a: np.concatenate(  # noqa: E731
+        [a, np.zeros((cap - nnz,) + a.shape[1:], a.dtype)])
+    valid = np.arange(cap) < nnz
+    factors = [(rng.standard_normal((s, r)) / np.sqrt(r)).astype(np.float32)
+               for s in shape]
+    return pad(idx)[perm], pad(vals)[perm], valid[perm], factors
+
+
+def _problem(order, seed=0):
+    shape, nnz, r = ORDERS[order]
+    idx, vals, valid, factors = _arrays(seed, shape, nnz, r)
+    j = JSparseTensor(jnp.asarray(idx), jnp.asarray(vals), jnp.asarray(valid),
+                      shape, nnz)
+    t = interop.sparse_from_numpy(idx, vals, valid, shape, "cpu")
+    return (j, j.with_values(jnp.ones_like(j.values)),
+            [jnp.asarray(f) for f in factors],
+            t, t.with_values(torch.ones_like(t.values)),
+            interop.factors_from_numpy(factors, "cpu"))
+
+
+def _close(got, want, **tol):
+    for d, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   err_msg=f"factor {d}", **(tol or TOL))
+
+
+@pytest.mark.parametrize("order", [3, 4])
+@pytest.mark.parametrize("path", PATHS)
+def test_gram_matvec_matches_reference(order, path):
+    j, jo, jf, t, to, tf = _problem(order, seed=1)
+    for mode in range(len(jf)):
+        x = np.random.default_rng(mode).standard_normal(tf[mode].shape) \
+            .astype(np.float32)
+        want = jals.gram_matvec(jo, jf, mode, jnp.asarray(x), LAM)
+        got = als.gram_matvec(to, tf, mode, torch.from_numpy(x), LAM,
+                              matvec_path=path)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("order", [3, 4])
+@pytest.mark.parametrize("path", PATHS)
+def test_als_update_mode_matches_reference(order, path):
+    j, jo, jf, t, to, tf = _problem(order)
+    mode = order - 1
+    want = jals.als_update_mode(j, jo, jf, mode, LAM, cg_tol=CG_TOL,
+                                cg_iters=CG_ITERS)
+    got = als.als_update_mode(t, to, tf, mode, LAM, cg_tol=CG_TOL,
+                              cg_iters=CG_ITERS, matvec_path=path)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("order", [3, 4])
+@pytest.mark.parametrize("path", PATHS)
+def test_als_sweep_matches_reference(order, path):
+    j, jo, jf, t, to, tf = _problem(order)
+    sweep = jax.jit(lambda s, o, fs: tuple(jals.als_sweep(
+        s, o, list(fs), LAM, cg_tol=CG_TOL, cg_iters=CG_ITERS)))
+    want = sweep(j, jo, tuple(jf))
+    got = als.als_sweep(t, to, tf, LAM, cg_tol=CG_TOL, cg_iters=CG_ITERS,
+                        matvec_path=path)
+    _close(got, want)
+
+
+def test_explicit_baseline_matches_reference_and_implicit_cg():
+    """The explicit Gram-forming baseline is a third oracle: it matches the
+    reference's, and implicit CG run to convergence matches it."""
+    j, jo, jf, t, to, tf = _problem(3, seed=2)
+    want = jals.als_sweep_explicit(j, jf, LAM)
+    got = als.als_sweep_explicit(t, tf, LAM)
+    _close(got, want)
+    for mode in range(3):
+        direct = als.als_update_mode_explicit(t, tf, mode, LAM)
+        cg = als.als_update_mode(t, to, tf, mode, LAM, cg_tol=1e-7,
+                                 cg_iters=30)
+        # CG to a 1e-7 residual in float32 vs a direct solve
+        np.testing.assert_allclose(cg.numpy(), direct.numpy(), rtol=1e-3,
+                                   atol=1e-3)
+
+
+def test_batched_cg_fixed_trip_matches_early_exit():
+    """The port runs max_iters iterations with converged rows frozen; the
+    reference's while-loop stops when all rows converge. Same x, and the
+    port's device counter gives the reference's trip count."""
+    rng = np.random.default_rng(3)
+    n, r = 40, 6
+    a = rng.standard_normal((n, r, r)).astype(np.float32)
+    spd = np.einsum("nij,nkj->nik", a, a) + 0.5 * np.eye(r, dtype=np.float32)
+    b = rng.standard_normal((n, r)).astype(np.float32)
+    x0 = np.zeros_like(b)
+    jmv = lambda x: jnp.einsum("nij,nj->ni", jnp.asarray(spd), x)  # noqa
+    tmv = lambda x: torch.einsum("nij,nj->ni", torch.from_numpy(spd), x)  # noqa
+    jx, jiters = jals.batched_cg(jmv, jnp.asarray(b), jnp.asarray(x0),
+                                 tol=1e-5, max_iters=40)
+    tx, titers = als.batched_cg(tmv, torch.from_numpy(b),
+                                torch.from_numpy(x0), tol=1e-5, max_iters=40)
+    assert int(titers) == int(jiters) < 40
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+
+
+def test_gram_matvec_refuses_unported_options():
+    j, jo, jf, t, to, tf = _problem(3)
+    with pytest.raises(NotImplementedError):
+        als.gram_matvec(to, tf, 0, tf[0], LAM, h_slices=2)
+    with pytest.raises(ValueError, match="matvec_path"):
+        als.gram_matvec(to, tf, 0, tf[0], LAM, matvec_path="dense")
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_cli_from_npz_matches_reference_sweep(tmp_path, capsys, path):
+    """``--init-npz`` starts the CLI from the reference's arrays; one sweep
+    matches the reference's LOCAL sweep and ``--dump-factors`` writes it."""
+    j, jo, jf, t, to, tf = _problem(3, seed=4)
+    src, out = tmp_path / "init.npz", tmp_path / "out.npz"
+    np.savez(src, indices=np.asarray(j.indices), values=np.asarray(j.values),
+             valid=np.asarray(j.valid), shape=np.asarray(j.shape),
+             **{f"factor_{d}": np.asarray(f) for d, f in enumerate(jf)})
+    run = complete.main(["--device", "cpu", "--init-npz", str(src),
+                         "--sweeps", "2", "--cg-iters", str(CG_ITERS),
+                         "--lam", str(LAM), "--matvec-path", path,
+                         "--dump-factors", str(out)])
+    text = capsys.readouterr().out
+    assert "sweep   0" in text and "sweep   1" in text and "rmse=" in text
+    want = jals.als_sweep(j, jo, jf, LAM, cg_tol=CG_TOL, cg_iters=CG_ITERS)
+    _close(run.sweep_factors[0], want)
+    e = [run.rmse0] + [h[2] for h in run.history]
+    assert all(np.isfinite(e)) and e[2] < e[1] < e[0]
+    with np.load(out) as z:
+        for d, f in enumerate(run.factors):
+            np.testing.assert_array_equal(z[f"factor_{d}"], f.numpy())
+
+
+@pytest.mark.parametrize("argv", [["--algorithm", "ccd"], ["--mesh", "2,1"],
+                                  ["--ckpt-dir", "ck"],
+                                  ["--dataset", "netflix"],
+                                  ["--dump-factors", "ckpt_dir"]])
+def test_cli_refuses_unported(argv):
+    with pytest.raises(SystemExit, match="port|ported"):
+        complete.main(["--device", "cpu"] + argv)
+
+
+def test_cli_function_tensor_on_cpu(capsys):
+    run = complete.main(["--device", "cpu", "--dims", "40,30,20", "--nnz",
+                         "3000", "--rank", "5", "--sweeps", "2",
+                         "--cg-iters", "8", "--seed", "1"])
+    e = [run.rmse0] + [h[2] for h in run.history]
+    assert all(np.isfinite(e)) and e[2] < e[0]
+    assert run.dataset.tensor.nnz == 3000
+    assert [f.shape for f in run.factors] == [(40, 5), (30, 5), (20, 5)]
+    assert os.path.basename(complete.__file__) == "complete.py"
