@@ -7,11 +7,15 @@ Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
 six phases and stops with a non-zero exit at the first failure:
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for sm_90a;
-2. hold each kernel against its plain PyTorch version on the card: R = 10
-   and 64, block_rows 8 and 16, orders 3 and 4, empty buckets, padding
-   slots, a bucket capacity that is not a multiple of the CTA's slot tile, a
-   missing factor; rtol = atol = 1e-4 (shared-memory atomics change the
-   order of the bucket sums from run to run);
+2. hold each kernel against its plain PyTorch version on the card: R = 3,
+   10 and 64 (3 and 10 padded to a 16-byte row stride), block_rows 8 and
+   16, orders 3 and 4, empty buckets, padding slots, a bucket capacity that
+   is not a multiple of the CTA's step, threads whose slots cross rows (the
+   running sums flush inside the capacity loop), warps whose slots hold
+   three rows, tensors sorted and not sorted by the bucketed mode (monotone
+   and shuffled ``sel``), a missing factor; the run fails unless every one
+   of these layouts occurred; rtol = atol = 1e-4 (shared-memory atomics
+   change the order of the bucket sums from run to run);
 3. run implicit-CG ALS through ``repro_torch.launch.complete``: the function
    tensor at dims 20000^3 with 80 M nonzeros (density 1e-5, paper Fig. 7a),
    rank 10, 20 CG iterations, block_rows 8, two sweeps on the fused matvec,
@@ -24,12 +28,17 @@ six phases and stops with a non-zero exit at the first failure:
 4. hold each kernel, through the ``kernels.ops`` wrapper the main path
    calls, against its plain version on the main path's tensors (rtol 1e-4,
    atol 1e-5 of the largest plain entry; a disagreement fails the run),
-   then time each with CUDA events at those shapes, beside its plain
-   version, the one PyTorch call that computes the same function where
-   there is one, and the least time the card could take (bytes over
-   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger);
-5. profile one fused sweep with torch.profiler: device time by kernel and
-   the device's idle share of the sweep;
+   then time each with CUDA events at those shapes (the bucketed wrappers'
+   time includes their padded copies of the factors and x), beside its
+   plain version, the one PyTorch call that computes the same function
+   where there is one, and the least time the card could take (bytes over
+   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger); for
+   the bucketed kernels also the L2 sector bytes of their factor-row
+   gathers, computed from the shapes, and the rate that implies;
+5. profile one fused sweep with torch.profiler: device time by kernel, the
+   device's idle share of the sweep, and the costliest device kernels with
+   their launch counts (the bucket values were gathered in phase 3, once
+   per tensor and mode, so no gather of them shows here);
 6. print the kernel table as one JSON line, the card's name and power limit,
    and, last, ``{"ok": true, "device": {...}}``.
 """
@@ -77,6 +86,17 @@ def bound(n_bytes, n_ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def gather_sector_bytes(n_rows, r):
+    """L2 sector bytes that gathering ``n_rows`` factor rows takes when each
+    row is read whole at the bucketed kernels' padded stride (R rounded up
+    to 4 floats): the 32-byte sectors a row spans, averaged over the row
+    offsets, which repeat every 8 rows."""
+    stride = 4 * (-(-r // 4) * 4)
+    spans = [(i * stride + stride - 1) // 32 - i * stride // 32 + 1
+             for i in range(8)]
+    return n_rows * 32 * sum(spans) / len(spans)
+
+
 def time_ms(torch, fn, reps):
     """Mean device time of ``fn`` in ms over ``reps`` runs, after a warm-up
     run, by CUDA events."""
@@ -113,9 +133,18 @@ def phase_build():
 # phase 2
 # ---------------------------------------------------------------------------
 
-def _check_problem(torch, gen, shape, nnz, r, dev):
+# (shape, nnz, sort_mode): mode-0 rows fill the lower half only, so the upper
+# buckets are empty; (400, 30, 20) has about 12 slots per bucket of 8 rows,
+# so a warp's slots cross several rows; the tensor sorted by mode 0 gathers
+# its mode-0 buckets through a monotone sel, the shuffled ones do not
+CHECK_PROBLEMS = (((203, 77, 64), 10000, None), ((41, 30, 20, 12), 9000, None),
+                  ((400, 30, 20), 600, None), ((60, 30, 20), 6000, 0))
+
+
+def _check_problem(torch, gen, shape, nnz, r, dev, sort_mode):
     """A tensor with COO padding whose mode-0 rows fill only the lower half
-    (so the upper buckets are empty), and factors with entries of order 1."""
+    (so the upper buckets are empty), in random order or sorted by
+    ``sort_mode``, and factors with entries of order 1."""
     from repro_torch.core.sparse_tensor import SparseTensor
     cols = [torch.randint(0, s // 2 if d == 0 else s, (nnz,), generator=gen,
                           device=dev, dtype=torch.int32)
@@ -123,9 +152,34 @@ def _check_problem(torch, gen, shape, nnz, r, dev):
     vals = torch.rand(nnz, generator=gen, device=dev)
     st = SparseTensor.from_coo(torch.stack(cols, 1), vals, shape,
                                cap=nnz + 37)
+    if sort_mode is not None:
+        st = st.sort_by_mode(sort_mode)
     factors = [0.5 * torch.randn(s, r, generator=gen, device=dev)
                for s in shape]
     return st, factors
+
+
+def _layouts(torch, pat, threads):
+    """Which of the bucketed kernels' edge cases a bucket pattern holds."""
+    nb, c = pat.valid.shape
+    key = torch.where(pat.valid, pat.local_row, pat.block_rows)
+    seen = {"empty bucket, capacity off the CTA's step":
+            bool((pat.valid.sum(1) == 0).any()) and c % threads != 0}
+    # a thread takes slots t, t + threads, ...: a run that crosses rows
+    # flushes its running sum inside the capacity loop
+    full = c // threads * threads
+    runs = key[:, :full].reshape(nb, -1, threads)
+    seen["thread's run crosses rows"] = bool(
+        (runs.amax(1) != runs.amin(1)).any()) if full else False
+    # three rows in one warp's 32 slots: flushing lanes hold different rows
+    warps = key[:, :c // 32 * 32].reshape(nb, -1, 32)
+    rows = torch.arange(pat.block_rows, device=key.device)
+    n_rows = (warps[..., None] == rows).any(2).sum(-1)
+    seen["warp's slots hold 3 rows"] = bool((n_rows >= 3).any())
+    pairs = pat.valid[:, 1:] & pat.valid[:, :-1]
+    mono = bool((pat.sel[:, 1:] >= pat.sel[:, :-1])[pairs].all())
+    seen["monotone sel" if mono else "shuffled sel"] = True
+    return seen
 
 
 def phase_check(torch, dev):
@@ -135,7 +189,7 @@ def phase_check(torch, dev):
     from repro_torch.sparse.ccsr import bucket_pattern
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_cases = 0
-    ragged = 0   # cases with an empty bucket and a capacity off the CTA
+    covered = {}
     worst = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0}
 
     def close(name, got, want, what):
@@ -145,11 +199,12 @@ def phase_check(torch, dev):
         worst[name] = max(worst[name], float((got - want).abs().max()))
         n_cases += 1
 
-    for shape, nnz in (((203, 77, 64), 10000), ((41, 30, 20, 12), 9000)):
-        for r in (10, 64):
-            st, factors = _check_problem(torch, gen, shape, nnz, r, dev)
+    for shape, nnz, sort_mode in CHECK_PROBLEMS:
+        for r in (3, 10, 64):
+            st, factors = _check_problem(torch, gen, shape, nnz, r, dev,
+                                         sort_mode)
             vals = st.values * st.mask
-            what = f"shape={shape} R={r}"
+            what = f"shape={shape} R={r} sorted by {sort_mode}"
             close("tttp", kops.tttp_values(st, factors),
                   kref.tttp_ref(vals, st.indices, factors), what)
             partial = [None] + factors[1:]
@@ -178,14 +233,15 @@ def phase_check(torch, dev):
                           kref.cg_matvec_bucketed_ref(
                               bo.values, bo.indices, bo.local_row, factors, x,
                               mode, block_rows)[:shape[mode]], w)
-                    ragged += bool(empty and bk.capacity % _build.THREADS)
+                    for k, v in _layouts(torch, pat, _build.THREADS).items():
+                        covered[k] = covered.get(k, False) or v
     torch.cuda.synchronize()
-    if not ragged:
-        raise SystemExit("no check case had an empty bucket and a capacity "
-                         f"off the {_build.THREADS}-slot CTA")
-    log(f"phase 2: {n_cases} kernel-vs-plain checks passed at rtol=atol=1e-4;"
-        f" max |kernel - plain|: " +
-        ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+    missing = [k for k, v in covered.items() if not v]
+    if missing or len(covered) < 5:
+        raise SystemExit(f"phase 2 checks miss layouts: {missing or covered}")
+    log(f"phase 2: {n_cases} kernel-vs-plain checks passed at rtol=atol=1e-4 "
+        f"(R = 3, 10, 64; layouts: {', '.join(covered)}); max |kernel - "
+        f"plain|: " + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +399,7 @@ def phase_timing(torch, run, launches):
         plain_ms=time_ms(torch, plain_mttkrp, 3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, library_mttkrp, 3),
+        gather_l2_bytes=gather_sector_bytes(n_valid * len(other_fs), RANK),
         shape=f"nb={bk.num_blocks} C={bk.capacity} block_rows={BLOCK_ROWS} "
               f"R={RANK} valid={n_valid}"))
     del bk, cols, mvals
@@ -370,6 +427,7 @@ def phase_timing(torch, run, launches):
         ms=time_ms(torch, lambda: kops.cg_matvec_bucketed(bo, fs, x), 20),
         plain_ms=time_ms(torch, plain_cg, 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        gather_l2_bytes=gather_sector_bytes(n_valid * len(other_fs), RANK),
         shape=f"nb={bo.num_blocks} C={bo.capacity} block_rows={BLOCK_ROWS} "
               f"R={RANK} valid={n_valid}"))
     for row in rows_out:
@@ -377,6 +435,10 @@ def phase_timing(torch, run, launches):
             f"{row['plain_ms']:9.3f} ms  bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']})  library {row['library_ms']}  "
             f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]")
+        if "gather_l2_bytes" in row:
+            log(f"  factor-row gathers: {row['gather_l2_bytes'] / 1e9:.2f} GB "
+                f"of L2 sectors (from shapes), "
+                f"{row['gather_l2_bytes'] / row['ms'] / 1e9:.2f} TB/s")
     log(f"phase 4: each kernel held against its plain version at rtol "
         f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|")
     return rows_out
@@ -386,8 +448,14 @@ def phase_timing(torch, run, launches):
 # phase 5
 # ---------------------------------------------------------------------------
 
-OWN_KERNELS = {"tttp_kernel": "tttp", "mttkrp_bucketed_kernel": "mttkrp",
-               "cg_matvec_kernel": "cg_matvec"}
+def kernel_group(name):
+    """Which of the port's kernels a device kernel's name is (the bucketed
+    body is bucket_rows_kernel<RMAX, FUSED>, FUSED = true for the matvec)."""
+    if "tttp_kernel" in name:
+        return "tttp"
+    if "bucket_rows_kernel" in name:
+        return "cg_matvec" if "true>" in name else "mttkrp"
+    return "other"
 
 
 def phase_profile(torch, run):
@@ -408,11 +476,12 @@ def phase_profile(torch, run):
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): key_averages() would also
     # credit each kernel's time to the aten op that launched it
-    by_name = {}
+    by_name, count = {}, {}
     for evt in prof.events():
         if evt.device_type == DeviceType.CUDA:
             by_name[evt.name] = (by_name.get(evt.name, 0.0)
                                  + evt.time_range.elapsed_us() / 1e3)
+            count[evt.name] = count.get(evt.name, 0) + 1
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
         log("phase 5: the profiler saw no device time; breakdown not "
@@ -420,14 +489,13 @@ def phase_profile(torch, run):
         return
     groups = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0, "other": 0.0}
     for name, ms in by_name.items():
-        own = [v for k, v in OWN_KERNELS.items() if k in name]
-        groups[own[0] if own else "other"] += ms
+        groups[kernel_group(name)] += ms
     log(f"phase 5: one fused sweep under torch.profiler: wall {wall_ms:.1f} "
         f"ms, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; device ms by kernel: " +
         ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"  {ms:8.2f} ms  {name[:110]}")
+        log(f"  {ms:8.2f} ms  {count[name]:4d}x  {name[:110]}")
 
 
 def main():

@@ -7,7 +7,10 @@ the mask guards the nonlinear paths. Storage is Θ(cap) = Θ(m), never
 
 The CCSR row-block bucket patterns (``repro_torch.sparse.ccsr``) are cached
 per ``(mode, block_rows)`` and shared by reference across ``with_values``
-derivations: the Ω pattern is the same, only the values are re-gathered.
+derivations: the Ω pattern is the same, only the values differ. The bucket
+values gathered through a pattern are cached per tensor: each instance
+gathers its own values once per ``(mode, block_rows)``, and again only
+after its ``values`` or ``valid`` change.
 """
 from __future__ import annotations
 
@@ -28,6 +31,10 @@ class SparseTensor:
     nnz: Optional[int] = None          # global nonzero count hint
     sorted_mode: Optional[int] = None  # mode by which entries are sorted
     _pattern_cache: Optional[dict] = dataclasses.field(
+        default=None, repr=False, compare=False)
+    # (mode, block_rows) -> (values, values._version, valid, valid._version,
+    # RowBlockBuckets): this instance's gathered bucket views
+    _bucket_cache: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     # -- basic properties ---------------------------------------------------
@@ -78,7 +85,7 @@ class SparseTensor:
 
     def with_values(self, values: torch.Tensor) -> "SparseTensor":
         """Same pattern, new values (zeroed on padding). Shares the cached
-        bucket patterns."""
+        bucket patterns, not the gathered bucket values."""
         return SparseTensor(self.indices, torch.where(self.valid, values, 0),
                             self.valid, self.shape, self.nnz,
                             self.sorted_mode,
@@ -89,17 +96,29 @@ class SparseTensor:
 
         The pattern is built once per ``(mode, block_rows)`` (normally at
         ingest, ``data.pipeline.CompletionDataset``) and reused across
-        ``with_values`` derivations; each call re-gathers the current values
-        through it."""
+        ``with_values`` derivations. The values are gathered through it once
+        per tensor: later calls return the same view while ``values`` and
+        ``valid`` are the same tensors at the same version (an in-place
+        write bumps ``_version`` and so brings a fresh gather)."""
         if self._pattern_cache is None:
             self._pattern_cache = {}
+        if self._bucket_cache is None:
+            self._bucket_cache = {}
         key = (int(mode), int(block_rows))
+        hit = self._bucket_cache.get(key)
+        if (hit is not None and hit[0] is self.values
+                and hit[1] == self.values._version and hit[2] is self.valid
+                and hit[3] == self.valid._version):
+            return hit[4]
         pat = self._pattern_cache.get(key)
         if pat is None:
             from repro_torch.sparse.ccsr import bucket_pattern
             pat = bucket_pattern(self, mode, block_rows)
             self._pattern_cache[key] = pat
-        return pat.gather(self)
+        buckets = pat.gather(self)
+        self._bucket_cache[key] = (self.values, self.values._version,
+                                   self.valid, self.valid._version, buckets)
+        return buckets
 
     def attach_pattern(self, mode: int, block_rows: int, pattern) -> None:
         """Install an externally built bucket pattern so later

@@ -10,6 +10,9 @@
 
 constexpr int MAX_ND = 8;             // tensor order the kernels accept
 constexpr long long MAX_GRID = 1 << 20;
+// threads per CTA the bucketed kernels are compiled for (__launch_bounds__);
+// kernels/_build.py THREADS launches them with this many
+constexpr int MAX_THREADS = 256;
 
 struct FactorTable {
   const float* p[MAX_ND];  // (I_d, R) row-major, or nullptr

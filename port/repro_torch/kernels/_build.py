@@ -29,25 +29,25 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH_FLAGS)
 
-# threads per CTA of every launch: for the bucketed kernels also the bucket
-# slots a CTA consumes per step of its walk over the capacity axis
+# threads per CTA of every launch; the bucketed kernels are compiled for at
+# most this many (MAX_THREADS in csrc/common.cuh) and take SLOTS
+# (csrc/bucket_rows.cuh) times this many bucket slots per step
 THREADS = 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
+_BUCKETED = (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _P, _L, _I, _I, _I, _P,
+             _I, _P)
 SIGNATURES = {
     # values, indices, m, nd, factors[nd], R, out, threads, stream
     "repro_tttp_f32": (_P, _P, _L, _I, _PTRS, _I, _P, _I, _P),
-    # values, indices, local_row, valid, nb, C, nd, mode, factors[nd], R,
-    # block_rows, out, threads, stream
-    "repro_mttkrp_bucketed_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _I,
-                                  _I, _P, _I, _P),
-    # omega, indices, local_row, valid, nb, C, nd, mode, factors[nd], x, R,
-    # block_rows, out, threads, stream
-    "repro_cg_matvec_bucketed_f32": (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS,
-                                     _P, _I, _I, _P, _I, _P),
+    # values (ω for the matvec), indices, local_row, valid, nb, C, nd, mode,
+    # factors[nd], x, x_rows, R, RS (padded row stride), block_rows, out,
+    # threads, stream; the MTTKRP ignores x and x_rows
+    "repro_mttkrp_bucketed_f32": _BUCKETED,
+    "repro_cg_matvec_bucketed_f32": _BUCKETED,
 }
 
 _lock = threading.Lock()
@@ -65,30 +65,30 @@ def nvcc_path() -> str:
                        "CUDA kernels cannot be built on this machine")
 
 
-def _sources():
-    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
 
 
-def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+def library_path(csrc: Path = CSRC_DIR) -> Path:
+    """Where the library for the sources in ``csrc`` and the flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sum(_sources(), []):
+    for p in sum(_sources(csrc), []):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile and link the kernels unless the current build exists.
+def build(csrc: Path = CSRC_DIR) -> Path:
+    """Compile and link the kernels in ``csrc`` unless that build exists.
     Raises ``RuntimeError`` with nvcc's output if a step fails. The
     compiler's resource report (``-Xptxas -v``) is kept beside the library
     as ``<library>.log``."""
-    out = library_path()
+    out = library_path(csrc)
     if out.exists():
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources()
+    cu, _ = _sources(csrc)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in cu]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
@@ -116,11 +116,23 @@ def build() -> Path:
     return out
 
 
-def build_log() -> str:
-    """The compiler's resource report of the current build ('' if the
+def build_log(csrc: Path = CSRC_DIR) -> str:
+    """The compiler's resource report of the build of ``csrc`` ('' if the
     library was built elsewhere)."""
-    log = Path(str(library_path()) + ".log")
+    log = Path(str(library_path(csrc)) + ".log")
     return log.read_text() if log.exists() else ""
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C signatures."""
+    handle = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    handle.repro_cuda_error_string.argtypes = (ctypes.c_int,)
+    handle.repro_cuda_error_string.restype = ctypes.c_char_p
+    return handle
 
 
 def lib() -> ctypes.CDLL:
@@ -128,14 +140,7 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.repro_cuda_error_string.argtypes = (ctypes.c_int,)
-            handle.repro_cuda_error_string.restype = ctypes.c_char_p
-            _lib = handle
+            _lib = load(build())
     return _lib
 
 

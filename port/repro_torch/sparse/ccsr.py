@@ -6,11 +6,12 @@ bucketed MTTKRP and fused CG-matvec kernels give each bucket to one CTA,
 which owns those output rows and so needs no global atomics.
 
 The pattern (``sel``, ``indices``, ``local_row``, ``valid``) depends only on
-Ω and is built once at ingest; the bucket values are re-gathered through
-``sel`` on every call (``BucketPattern.gather``). The build is written in
-torch so it runs on the tensor's own device (a stable sort on the card for
-paper-scale tensors); it yields the same arrays, bit for bit, as the
-reference's host-side numpy build.
+Ω and is built once at ingest; a tensor's bucket values are gathered through
+``sel`` (``BucketPattern.gather``) once per tensor and mode, and kept by
+``SparseTensor.row_buckets`` while the tensor's values stay the same. The
+build is written in torch so it runs on the tensor's own device (a stable
+sort on the card for paper-scale tensors); it yields the same arrays, bit
+for bit, as the reference's host-side numpy build.
 """
 from __future__ import annotations
 

@@ -37,9 +37,10 @@ def dev():
     return torch.device("cuda")
 
 
-def _problem(device, seed, shape, nnz, r):
+def _problem(device, seed, shape, nnz, r, sort_mode=None):
     """Padded COO whose mode-0 rows fill only the lower half (empty upper
-    buckets), and factors; numpy-made so CPU and card see the same data."""
+    buckets), in random order or sorted by ``sort_mode``, and factors;
+    numpy-made so CPU and card see the same data."""
     rng = np.random.default_rng(seed)
     hi = [s // 2 if d == 0 else s for d, s in enumerate(shape)]
     idx = np.zeros((nnz + 19, len(shape)), np.int32)
@@ -50,9 +51,11 @@ def _problem(device, seed, shape, nnz, r):
     perm = rng.permutation(nnz + 19)
     factors = [(0.5 * rng.standard_normal((s, r))).astype(np.float32)
                for s in shape]
-    return (interop.sparse_from_numpy(idx[perm], vals[perm], valid[perm],
-                                      shape, device),
-            interop.factors_from_numpy(factors, device))
+    st = interop.sparse_from_numpy(idx[perm], vals[perm], valid[perm], shape,
+                                   device)
+    if sort_mode is not None:
+        st = st.sort_by_mode(sort_mode)
+    return st, interop.factors_from_numpy(factors, device)
 
 
 @pytest.mark.cuda
@@ -78,6 +81,50 @@ def test_kernels_match_plain_versions(dev, shape, r, block_rows):
             kref.cg_matvec_bucketed_ref(bk.values, bk.indices, bk.local_row,
                                         fs, fs[mode], mode,
                                         block_rows)[:shape[mode]], **TOL)
+
+
+# (shape, nnz, R, sort_mode): R = 3 and 10 pad to a 16-byte row stride;
+# (400, 30, 20) has about 12 slots per bucket of 8 rows, so a warp's slots
+# cross several rows and the flush takes its per-lane path; in the others a
+# thread's run of slots crosses rows, so its running sum flushes inside the
+# capacity loop ((24, 30, 20): thousands of slots per bucket); the sorted
+# tensor's buckets over mode 0 gather through a monotone sel, the others
+# through a shuffled one
+EDGE_CASES = [((40, 24, 12), 3000, 3, None), ((400, 30, 20), 600, 10, None),
+              ((24, 30, 20), 12000, 10, None), ((60, 30, 20), 6000, 10, 0),
+              ((26, 10, 8, 6), 3000, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,nnz,r,sort_mode", EDGE_CASES)
+@pytest.mark.parametrize("block_rows", [8, 16])
+def test_bucketed_kernels_on_layout_edge_cases(dev, shape, nnz, r, sort_mode,
+                                               block_rows):
+    from repro_torch.kernels import _build
+    st, fs = _problem(dev, 3, shape, nnz, r, sort_mode)
+    for mode in (0, len(shape) - 1):
+        bk = st.row_buckets(mode, block_rows)
+        others = list(fs)
+        others[mode] = None
+        got = kops.mttkrp_bucketed(bk, others)
+        want = kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                        others, mode,
+                                        block_rows)[:shape[mode]]
+        torch.testing.assert_close(got, want, **TOL)
+        x = 0.5 * torch.randn(shape[mode], r, device=dev)
+        got = kops.cg_matvec_bucketed(bk, fs, x)
+        want = kref.cg_matvec_bucketed_ref(bk.values, bk.indices,
+                                           bk.local_row, fs, x, mode,
+                                           block_rows)[:shape[mode]]
+        torch.testing.assert_close(got, want, **TOL)
+    bk = st.row_buckets(0, block_rows)
+    assert bool((bk.valid.sum(1) == 0).any())        # an empty bucket
+    assert bk.capacity % _build.THREADS != 0         # a ragged last step
+    if bk.capacity >= 2 * _build.THREADS:
+        # some thread's slots (c ≡ t mod THREADS) span more than one row
+        lr = bk.local_row[:, :bk.capacity // _build.THREADS * _build.THREADS]
+        runs = lr.reshape(bk.num_blocks, -1, _build.THREADS)
+        assert bool((runs.amax(1) != runs.amin(1)).any())
 
 
 @pytest.mark.cuda

@@ -31,6 +31,7 @@ from repro_torch.core import tttp as core_tttp
 from repro_torch.kernels import cg_matvec as kcg
 from repro_torch.kernels import mttkrp as kmttkrp
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import tile as ktile
 from repro_torch.kernels import tttp as ktttp
 from repro_torch.sparse import ccsr
@@ -214,3 +215,43 @@ def test_scatter_rows_batched_buckets_match_reference(schedule):
         np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
                                    rtol=1e-5, atol=1e-5)
     assert not got[2].any()
+
+
+@pytest.mark.parametrize("r", [1, 3, 10, 64])
+def test_pad_rows_gives_aligned_zero_padded_rows(r):
+    """The copies the bucketed kernels gather from: a row stride of a
+    multiple of 4 floats (16 bytes) at a 16-byte-aligned address, the
+    original rows in front and zeros behind."""
+    t = torch.from_numpy(np.random.default_rng(r).standard_normal((37, r))
+                         .astype(np.float32))
+    p = kmttkrp.pad_rows(t)
+    assert p.shape == (37, -(-r // 4) * 4) and p.is_contiguous()
+    assert p.stride(0) * 4 % 16 == 0 and p.data_ptr() % 16 == 0
+    assert torch.equal(p[:, :r], t)
+    assert not p[:, r:].any()
+    if r % 4 == 0:
+        assert p is t
+    # a view off the 16-byte grid is copied even at a width of 4k
+    view = torch.zeros(38 * 4 + 1)[1:].view(38, 4)
+    assert kmttkrp.pad_rows(view).data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("r", [1, 3, 10, 64])
+@pytest.mark.parametrize("mode", [0, 2])
+def test_plain_bucketed_versions_exact_on_padded_rows(r, mode):
+    """The zero columns the wrappers add add exact zeros: the plain versions
+    over padded factors and x, cut back to R columns, equal the unpadded
+    results bit for bit."""
+    j, jf, t, tf = _problem(12, (40, 24, 12), 600, r)
+    bk = t.row_buckets(mode, 8)
+    args = (bk.values, bk.indices, bk.local_row)
+    pf = [kmttkrp.pad_rows(f) for f in tf]
+    assert torch.equal(
+        kref.mttkrp_bucketed_ref(*args, _drop(pf, mode), mode, 8)[:, :r],
+        kref.mttkrp_bucketed_ref(*args, _drop(tf, mode), mode, 8))
+    x = torch.from_numpy(np.random.default_rng(r).standard_normal(
+        (t.shape[mode], r)).astype(np.float32))
+    assert torch.equal(
+        kref.cg_matvec_bucketed_ref(*args, pf, kmttkrp.pad_rows(x), mode,
+                                    8)[:, :r],
+        kref.cg_matvec_bucketed_ref(*args, tf, x, mode, 8))

@@ -135,6 +135,32 @@ def test_with_values_shares_pattern_cache():
                                   .astype(np.float32))
 
 
+def test_row_buckets_gathers_once_per_tensor():
+    """The gathered bucket values are kept per tensor: a second call hands
+    back the same tensors, a with_values derivation gathers its own, and an
+    in-place write to the values brings a fresh gather."""
+    idx, vals = _coo(8, (20, 10, 6), 150)
+    t = SparseTensor.from_coo(idx, vals, (20, 10, 6), cap=160)
+    bk = t.row_buckets(0, 8)
+    again = t.row_buckets(0, 8)
+    assert again is bk and again.values is bk.values
+    assert t.row_buckets(1, 8).values is not bk.values
+    omega = t.with_values(torch.ones_like(t.values))
+    ob = omega.row_buckets(0, 8)
+    assert ob.values is not bk.values and ob.indices is bk.indices
+    np.testing.assert_array_equal(ob.values.numpy(),
+                                  bk.valid.numpy().astype(np.float32))
+    assert t.row_buckets(0, 8).values is bk.values
+    t.values.mul_(3)
+    fresh = t.row_buckets(0, 8)
+    assert fresh.values is not bk.values
+    np.testing.assert_array_equal(fresh.values.numpy(),
+                                  3 * bk.values.numpy())
+    assert t.row_buckets(0, 8) is fresh
+    t.valid[:] = False
+    assert not t.row_buckets(0, 8).values.any()
+
+
 def test_function_tensor_matches_reference_statistics():
     """Different random streams: compare the distribution only."""
     shape, nnz = (300, 200, 100), 20_000
