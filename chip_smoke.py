@@ -340,6 +340,9 @@ def phase_timing(torch, run, launches):
     fs = run.factors
     mode = 0
     rows_out = []
+    # L2 sector bytes of each bucketed kernel's factor-row gathers, from the
+    # shapes: printed beside the kernel's time, not part of its JSON row
+    gather_bytes = {}
 
     # TTTP as the RMSE calls it (core.tttp.multilinear_values): unit values
     # masked by Ω, all factors present
@@ -399,9 +402,10 @@ def phase_timing(torch, run, launches):
         plain_ms=time_ms(torch, plain_mttkrp, 3),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=time_ms(torch, library_mttkrp, 3),
-        gather_l2_bytes=gather_sector_bytes(n_valid * len(other_fs), RANK),
         shape=f"nb={bk.num_blocks} C={bk.capacity} block_rows={BLOCK_ROWS} "
               f"R={RANK} valid={n_valid}"))
+    gather_bytes["mttkrp_bucketed"] = gather_sector_bytes(
+        n_valid * len(other_fs), RANK)
     del bk, cols, mvals
 
     # fused CG matvec as the CG loop of mode 0 calls it (als.gram_matvec)
@@ -427,18 +431,19 @@ def phase_timing(torch, run, launches):
         ms=time_ms(torch, lambda: kops.cg_matvec_bucketed(bo, fs, x), 20),
         plain_ms=time_ms(torch, plain_cg, 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        gather_l2_bytes=gather_sector_bytes(n_valid * len(other_fs), RANK),
         shape=f"nb={bo.num_blocks} C={bo.capacity} block_rows={BLOCK_ROWS} "
               f"R={RANK} valid={n_valid}"))
+    gather_bytes["cg_matvec_bucketed"] = gather_sector_bytes(
+        n_valid * len(other_fs), RANK)
     for row in rows_out:
         log(f"phase 4: {row['name']:<18} {row['ms']:9.3f} ms  plain "
             f"{row['plain_ms']:9.3f} ms  bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']})  library {row['library_ms']}  "
             f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]")
-        if "gather_l2_bytes" in row:
-            log(f"  factor-row gathers: {row['gather_l2_bytes'] / 1e9:.2f} GB "
-                f"of L2 sectors (from shapes), "
-                f"{row['gather_l2_bytes'] / row['ms'] / 1e9:.2f} TB/s")
+        if row["name"] in gather_bytes:
+            g = gather_bytes[row["name"]]
+            log(f"  factor-row gathers: {g / 1e9:.2f} GB of L2 sectors (from "
+                f"shapes), {g / row['ms'] / 1e9:.2f} TB/s")
     log(f"phase 4: each kernel held against its plain version at rtol "
         f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|")
     return rows_out

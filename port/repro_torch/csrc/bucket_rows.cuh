@@ -28,18 +28,16 @@
 
 namespace {
 
-// Bucket slots a thread takes per step of the capacity loop, and the CTAs
-// of MAX_THREADS an SM must hold at RMAX = 16 (which caps a thread at 128
-// registers; larger RMAX are not capped). Chosen by timing the main path's
-// shapes with repro_torch/bench/variants.py on the H100: 1 and 3 slots, and
-// 3 CTAs, were slower (PERF.md).
+// Bucket slots a thread takes per step of the capacity loop. Chosen by
+// timing the main path's shapes on the H100: 1, 3 and 4 slots were slower
+// (PERF.md).
 constexpr int SLOTS = 2;
-constexpr int MIN_CTAS_PER_SM = 2;
 
+// The explicit minimum of 1 CTA per SM is not the default: nvcc compiles
+// the body differently without it, and the MTTKRP then ran 3-5 % slower
+// at the main path's shapes on the H100 (PERF.md).
 template <int RMAX, bool FUSED>
-__global__ void __launch_bounds__(MAX_THREADS,
-                                  RMAX <= 16 ? MIN_CTAS_PER_SM : 1)
-    bucket_rows_kernel(
+__global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
     const float* __restrict__ values, const int* __restrict__ indices,
     const int* __restrict__ local_row, const unsigned char* __restrict__ valid,
     long long C, int nd, int mode, FactorTable f,

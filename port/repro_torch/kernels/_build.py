@@ -65,30 +65,30 @@ def nvcc_path() -> str:
                        "CUDA kernels cannot be built on this machine")
 
 
-def _sources(csrc: Path):
-    return sorted(csrc.glob("*.cu")), sorted(csrc.glob("*.cuh"))
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")), sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def library_path(csrc: Path = CSRC_DIR) -> Path:
-    """Where the library for the sources in ``csrc`` and the flags lives."""
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sum(_sources(csrc), []):
+    for p in sum(_sources(), []):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def build(csrc: Path = CSRC_DIR) -> Path:
-    """Compile and link the kernels in ``csrc`` unless that build exists.
+def build() -> Path:
+    """Compile and link the kernels unless the current build exists.
     Raises ``RuntimeError`` with nvcc's output if a step fails. The
     compiler's resource report (``-Xptxas -v``) is kept beside the library
     as ``<library>.log``."""
-    out = library_path(csrc)
+    out = library_path()
     if out.exists():
         return out
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu, _ = _sources(csrc)
+    cu, _ = _sources()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in cu]
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
@@ -116,23 +116,11 @@ def build(csrc: Path = CSRC_DIR) -> Path:
     return out
 
 
-def build_log(csrc: Path = CSRC_DIR) -> str:
-    """The compiler's resource report of the build of ``csrc`` ('' if the
+def build_log() -> str:
+    """The compiler's resource report of the current build ('' if the
     library was built elsewhere)."""
-    log = Path(str(library_path(csrc)) + ".log")
+    log = Path(str(library_path()) + ".log")
     return log.read_text() if log.exists() else ""
-
-
-def load(path: Path) -> ctypes.CDLL:
-    """Load a built kernel library and declare its C signatures."""
-    handle = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(handle, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    handle.repro_cuda_error_string.argtypes = (ctypes.c_int,)
-    handle.repro_cuda_error_string.restype = ctypes.c_char_p
-    return handle
 
 
 def lib() -> ctypes.CDLL:
@@ -140,7 +128,14 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            _lib = load(build())
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            handle.repro_cuda_error_string.argtypes = (ctypes.c_int,)
+            handle.repro_cuda_error_string.restype = ctypes.c_char_p
+            _lib = handle
     return _lib
 
 

@@ -22,6 +22,7 @@ sys.path.insert(0, PORT)
 from repro_torch import interop
 from repro_torch.core.completion import als
 from repro_torch.kernels import cg_matvec as kcg
+from repro_torch.kernels import mttkrp as kmttkrp
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import tttp as ktttp
@@ -147,6 +148,8 @@ def test_wrappers_count_launches_and_refuse_bad_operands(dev):
     wide = [torch.zeros(f.shape[0], 129, device=dev) for f in fs]
     with pytest.raises(ValueError, match="R=129"):
         kcg.cg_matvec_cuda(bk, wide, wide[0])
+    with pytest.raises(ValueError, match="R=129"):
+        kmttkrp.mttkrp_cuda(bk, [None] + wide[1:])
     assert kops.launch_counts() == {"tttp": 1, "mttkrp": 1, "cg_matvec": 1}
 
 

@@ -194,6 +194,23 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     assert kops.launch_counts() == {"tttp": 0, "mttkrp": 0, "cg_matvec": 0}
 
 
+@pytest.mark.parametrize("kernel", ["mttkrp", "cg_matvec"])
+def test_bucketed_cuda_wrappers_refuse_rank_over_128(kernel):
+    """Both bucketed kernels keep a Khatri-Rao row and a running sum in
+    registers for padded widths up to 128 and refuse a wider R before they
+    look at the device, so the refusal shows on the CPU too."""
+    j, jf, t, tf = _problem(8, (16, 12, 8), 120, 10)
+    bk = t.row_buckets(0, 8)
+    wide = [torch.zeros(f.shape[0], 129) for f in tf]
+    kops.reset_launch_counts()
+    with pytest.raises(ValueError, match="R=129"):
+        if kernel == "mttkrp":
+            kmttkrp.mttkrp_cuda(bk, _drop(wide, 0))
+        else:
+            kcg.cg_matvec_cuda(bk, wide, wide[0])
+    assert kops.launch_counts() == {"tttp": 0, "mttkrp": 0, "cg_matvec": 0}
+
+
 @pytest.mark.parametrize("schedule", ["onehot", "segmented"])
 def test_scatter_rows_batched_buckets_match_reference(schedule):
     """Leading dimensions are independent buckets, as the plain bucketed
