@@ -6,45 +6,57 @@
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
 six phases and stops with a non-zero exit at the first failure:
 
-1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for sm_90a;
-2. hold each kernel against its plain PyTorch version on the card: R = 3,
-   10 and 64 (3 and 10 padded to a 16-byte row stride), block_rows 8 and
-   16, orders 3 and 4, empty buckets, padding slots, a bucket capacity that
-   is not a multiple of the CTA's step, threads whose slots cross rows (the
-   running sums flush inside the capacity loop), warps whose slots hold
-   three rows, tensors sorted and not sorted by the bucketed mode (monotone
-   and shuffled ``sel``), a missing factor; the run fails unless every one
-   of these layouts occurred; rtol = atol = 1e-4 (shared-memory atomics
-   change the order of the bucket sums from run to run);
+1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
+   sm_90a and print each kernel's registers and spills;
+2. hold each kernel against its plain PyTorch version on the card: R = 1,
+   3, 10, 64 and 160 (all but 64 padded to a 16-byte row stride; 160 is
+   wider than one launch of the bucketed body, so the MTTKRP runs in column
+   tiles and the Gram matvec as TTTP over the bucket view then the MTTKRP,
+   which the launch counts must show), block_rows 8 and 16, orders 3 and 4,
+   empty buckets, padding slots, a bucket capacity that is not a multiple of
+   the CTA's step, threads whose slots cross rows (the running sums flush
+   inside the capacity loop), warps whose slots hold three rows, tensors
+   sorted and not sorted by the bucketed mode (monotone and shuffled
+   ``sel``), a missing factor; TTTP also on padding slots whose values are
+   not zero (it must give exact zeros there), over a ragged tail and over a
+   bucket view; the run fails unless every one of these layouts occurred;
+   rtol = atol = 1e-4 (shared-memory atomics change the order of the bucket
+   sums from run to run);
 3. run implicit-CG ALS through ``repro_torch.launch.complete``: the function
    tensor at dims 20000^3 with 80 M nonzeros (density 1e-5, paper Fig. 7a),
    rank 10, 20 CG iterations, block_rows 8, two sweeps on the fused matvec,
    with every kernel's launch count zeroed before and read after; RMSE must
    be finite and fall, and each kernel must have launched. Then one sweep on
-   the TTTP + bucketed-MTTKRP matvec from the same start, whose factors must
+   the TTTP + bucketed-MTTKRP matvec from the same start, counts zeroed
+   before and read after, whose time is printed and whose factors must
    match the fused run's first sweep at rtol 1e-3 (atol 1e-3 of the
    factor's largest entry): CG carries the two routes' different summation
    orders through 20 iterations and three modes;
 4. hold each kernel, through the ``kernels.ops`` wrapper the main path
    calls, against its plain version on the main path's tensors (rtol 1e-4,
    atol 1e-5 of the largest plain entry; a disagreement fails the run),
-   then time each with CUDA events at those shapes (the bucketed wrappers'
-   time includes their padded copies of the factors and x), beside its
-   plain version, the one PyTorch call that computes the same function
-   where there is one, and the least time the card could take (bytes over
-   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger); for
-   the bucketed kernels also the L2 sector bytes of their factor-row
-   gathers, computed from the shapes, and the rate that implies;
-5. profile one fused sweep with torch.profiler: device time by kernel, the
-   device's idle share of the sweep, and the costliest device kernels with
-   their launch counts (the bucket values were gathered in phase 3, once
-   per tensor and mode, so no gather of them shows here);
+   then time each with CUDA events at those shapes (the wrappers' time
+   includes their padded copies of the factors and x), beside its plain
+   version, the one PyTorch call that computes the same function where
+   there is one, and the least time the card could take (bytes over
+   3.35 TB/s or fp32 operations over 67 TFLOP/s, whichever is larger), and
+   the L2 sector bytes of its factor-row gathers, computed from the shapes,
+   and the rate that implies. TTTP is timed twice: as the RMSE calls it
+   (COO) and as the ``tttp_mttkrp`` matvec calls it (Ω's bucket view);
+5. profile one fused sweep and one ``tttp_mttkrp`` sweep with
+   torch.profiler: device time by kernel, the device's idle share of the
+   sweep, and the costliest device kernels with their launch counts (the
+   bucket values were gathered in phase 3, once per tensor and mode, and
+   the ``tttp_mttkrp`` route gathers none per call, so no gather of 81 M
+   values shows here);
 6. print the kernel table as one JSON line, the card's name and power limit,
    and, last, ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -124,9 +136,24 @@ def phase_build():
     log(f"phase 1: built {os.path.relpath(path, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s ({_build.nvcc_path()}, "
         f"{' '.join(_build.ARCH_FLAGS)})")
+    kernel = None
     for line in _build.build_log().splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if line.startswith("=="):
             log(f"  {line.strip()}")
+        elif "Compiling entry function" in line:
+            kernel = kernel_name(line)
+        elif "registers" in line or "spill" in line:
+            log(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
+def kernel_name(line):
+    """``tttp_kernel<3>`` or ``bucket_rows_kernel<16, 1>`` from a ptxas
+    line that names a mangled entry function."""
+    m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", line)
+    if m is None:
+        return line.split("'")[1] if "'" in line else line.strip()
+    args = re.findall(r"L[a-z](\d+)E", m.group(2))
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +166,10 @@ def phase_build():
 # its mode-0 buckets through a monotone sel, the shuffled ones do not
 CHECK_PROBLEMS = (((203, 77, 64), 10000, None), ((41, 30, 20, 12), 9000, None),
                   ((400, 30, 20), 600, None), ((60, 30, 20), 6000, 0))
+# 3 and 10 pad to a 16-byte row stride; 160 is wider than one launch of the
+# bucketed body (MTTKRP in column tiles, Gram matvec as TTTP + MTTKRP) and
+# takes ten of TTTP's 16-column passes over R
+CHECK_RANKS = (1, 3, 10, 64, 160)
 
 
 def _check_problem(torch, gen, shape, nnz, r, dev, sort_mode):
@@ -184,6 +215,7 @@ def _layouts(torch, pat, threads):
 
 def phase_check(torch, dev):
     from repro_torch.kernels import _build
+    from repro_torch.kernels import mttkrp as kmttkrp
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.sparse.ccsr import bucket_pattern
@@ -199,18 +231,31 @@ def phase_check(torch, dev):
         worst[name] = max(worst[name], float((got - want).abs().max()))
         n_cases += 1
 
+    def seen(layout, held=True):
+        covered[layout] = covered.get(layout, False) or bool(held)
+
     for shape, nnz, sort_mode in CHECK_PROBLEMS:
-        for r in (3, 10, 64):
+        for r in CHECK_RANKS:
             st, factors = _check_problem(torch, gen, shape, nnz, r, dev,
                                          sort_mode)
-            vals = st.values * st.mask
             what = f"shape={shape} R={r} sorted by {sort_mode}"
-            close("tttp", kops.tttp_values(st, factors),
-                  kref.tttp_ref(vals, st.indices, factors), what)
-            partial = [None] + factors[1:]
-            close("tttp", kops.tttp_values(st, partial),
-                  kref.tttp_ref(vals, st.indices, partial),
-                  what + " factor 0 missing")
+            # padding slots holding values: the kernel must read valid
+            vals = st.values.clone()
+            vals[~st.valid] = 5.0
+            raw = dataclasses.replace(st, values=vals)
+            for fs, w in ((factors, what),
+                          ([None] + factors[1:], what + " factor 0 missing")):
+                got = kops.tttp_values(raw, fs)
+                close("tttp", got, kref.tttp_ref(vals, st.indices, st.valid,
+                                                 fs), w)
+                if not bool((got[~st.valid] == 0).all()):
+                    raise SystemExit(f"tttp {w}: padding slots not 0")
+            seen("tttp: factor missing")
+            seen("tttp: padding slots with non-zero values",
+                 (~st.valid).any())
+            # odd m: no CTA step of any number of nonzeros per thread
+            # fills the last one
+            seen("tttp: ragged tail", st.cap % 2 == 1)
             omega = st.with_values(torch.ones_like(st.values))
             for block_rows in (8, 16):
                 for mode in (0, len(shape) - 1):
@@ -221,6 +266,8 @@ def phase_check(torch, dev):
                          f"capacity={bk.capacity} empty_buckets={empty}")
                     fs = list(factors)
                     fs[mode] = None
+                    tiles = len(kmttkrp.column_tiles(r))
+                    kops.reset_launch_counts()
                     close("mttkrp",
                           kops.mttkrp_bucketed(bk, fs),
                           kref.mttkrp_bucketed_ref(
@@ -233,15 +280,35 @@ def phase_check(torch, dev):
                           kref.cg_matvec_bucketed_ref(
                               bo.values, bo.indices, bo.local_row, factors, x,
                               mode, block_rows)[:shape[mode]], w)
+                    # the matvec's TTTP half over the bucket view
+                    fx = list(factors)
+                    fx[mode] = x
+                    nb, c, nd = bo.indices.shape
+                    close("tttp", kops.tttp_bucket_values(bo, fx),
+                          kref.tttp_ref(bo.values.reshape(-1),
+                                        bo.indices.reshape(-1, nd),
+                                        bo.valid.reshape(-1), fx).view(nb, c),
+                          w + " bucket view")
+                    seen("tttp: bucket view")
+                    n = kops.launch_counts()
+                    wide = r > kmttkrp.MAX_RANK
+                    want = {"tttp": 1 + wide, "mttkrp": tiles * (1 + wide),
+                            "cg_matvec": int(not wide)}
+                    if n != want:
+                        raise SystemExit(f"{w}: launches {n}, expected {want}")
+                    if wide:
+                        seen(f"R={r}: mttkrp in {tiles} column tiles, matvec "
+                             f"as tttp + mttkrp")
                     for k, v in _layouts(torch, pat, _build.THREADS).items():
-                        covered[k] = covered.get(k, False) or v
+                        seen(k, v)
     torch.cuda.synchronize()
     missing = [k for k, v in covered.items() if not v]
-    if missing or len(covered) < 5:
+    if missing or len(covered) < 10:
         raise SystemExit(f"phase 2 checks miss layouts: {missing or covered}")
     log(f"phase 2: {n_cases} kernel-vs-plain checks passed at rtol=atol=1e-4 "
-        f"(R = 3, 10, 64; layouts: {', '.join(covered)}); max |kernel - "
-        f"plain|: " + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+        f"(R = {', '.join(map(str, CHECK_RANKS))}; layouts: "
+        f"{', '.join(covered)}); max |kernel - plain|: "
+        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -288,8 +355,11 @@ def phase_main_path(torch):
     other = complete.run_als(args, run.dataset, run.init_factors)
     torch.cuda.synchronize()
     other_launches = kops.launch_counts()
-    log(f"  tttp_mttkrp sweep: {time.perf_counter() - t0:.1f} s, launches "
-        f"{other_launches}")
+    log(f"  tttp_mttkrp run: {time.perf_counter() - t0:.1f} s, sweep "
+        f"{other.history[0][1] * 1e3:.1f} ms, launches {other_launches} "
+        f"(tttp 1 + {CG_ITERS} per mode in the sweep over the bucket view, "
+        f"and one RMSE before and after it; mttkrp 1 + (1 + {CG_ITERS}) per "
+        f"mode)")
     if other_launches["tttp"] == 0 or other_launches["mttkrp"] == 0:
         raise SystemExit("tttp_mttkrp route did not launch its kernels")
     for d, (a, b) in enumerate(zip(other.factors, run.sweep_factors[0])):
@@ -299,7 +369,7 @@ def phase_main_path(torch):
             msg=lambda m: f"factor {d}, tttp_mttkrp vs fused: {m}")
         log(f"  factor {d}: max |tttp_mttkrp - fused| = "
             f"{float((a - b).abs().max()):.3e} (max |fused| {scale:.3e})")
-    return run, launches
+    return run, launches, other_launches
 
 
 # ---------------------------------------------------------------------------
@@ -330,7 +400,7 @@ def held(torch, name, got, want):
     return float(err.max())
 
 
-def phase_timing(torch, run, launches):
+def phase_timing(torch, run, launches, other_launches):
     """Hold each kernel against its plain version on the main path's
     tensors, through the ``kernels.ops`` wrapper the main path calls, then
     time the wrapper, the plain version and the library call."""
@@ -340,28 +410,58 @@ def phase_timing(torch, run, launches):
     fs = run.factors
     mode = 0
     rows_out = []
-    # L2 sector bytes of each bucketed kernel's factor-row gathers, from the
-    # shapes: printed beside the kernel's time, not part of its JSON row
+    # L2 sector bytes of each kernel's factor-row gathers, from the shapes:
+    # printed beside the kernel's time, not part of its JSON row
     gather_bytes = {}
 
-    # TTTP as the RMSE calls it (core.tttp.multilinear_values): unit values
-    # masked by Ω, all factors present
+    # TTTP as the RMSE calls it (core.tttp.multilinear_values): unit values,
+    # all factors present, Ω's mask read by the kernel
     ones = st.with_values(torch.ones_like(st.values))
     err = held(torch, "tttp", kops.tttp_values(ones, fs),
-               kref.tttp_ref(ones.values * ones.mask, ones.indices, fs))
+               kref.tttp_ref(ones.values, ones.indices, ones.valid, fs))
     m, nd = st.indices.shape
-    b_ms, b_by = bound(nbytes(ones.values, ones.mask, ones.indices, *fs)
-                       + 4 * m, m * RANK * nd)
+    n_valid = int(ones.valid.sum())
+    b_ms, b_by = bound(nbytes(ones.values, ones.valid, ones.indices, *fs)
+                       + 4 * m, n_valid * RANK * nd)
     rows_out.append(dict(
         name="tttp", route="cuda", source="port/repro_torch/csrc/tttp.cu",
         replaces="src/repro/kernels/tttp.py:61", launches=launches["tttp"],
         max_abs_err=err,
         ms=time_ms(torch, lambda: kops.tttp_values(ones, fs), 20),
         plain_ms=time_ms(torch, lambda: kref.tttp_ref(
-            ones.values * ones.mask, ones.indices, fs), 3),
+            ones.values, ones.indices, ones.valid, fs), 3),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=f"m={m} nd={nd} R={RANK}"))
+        shape=f"m={m} nd={nd} R={RANK} valid={n_valid}"))
+    gather_bytes["tttp"] = gather_sector_bytes(n_valid * nd, RANK)
     del ones
+
+    # TTTP over Ω's bucket view as the tttp_mttkrp matvec of mode 0 calls it
+    # (als.gram_matvec), with x the mode-0 factor as in the fused row below
+    bo = omega.row_buckets(mode, BLOCK_ROWS)
+    fx = list(fs)
+    nb, c, _ = bo.indices.shape
+
+    def plain_tttp_buckets():
+        return kref.tttp_ref(bo.values.reshape(-1),
+                             bo.indices.reshape(-1, nd), bo.valid.reshape(-1),
+                             fx).view(nb, c)
+
+    err = held(torch, "tttp_bucket_view", kops.tttp_bucket_values(bo, fx),
+               plain_tttp_buckets())
+    n_valid = int(bo.valid.sum())
+    b_ms, b_by = bound(nbytes(bo.values, bo.valid, bo.indices, *fx)
+                       + 4 * nb * c, n_valid * RANK * nd)
+    rows_out.append(dict(
+        name="tttp_bucket_view", route="cuda",
+        source="port/repro_torch/csrc/tttp.cu",
+        replaces="src/repro/kernels/tttp.py:61",
+        launches=other_launches["tttp"], max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.tttp_bucket_values(bo, fx), 20),
+        plain_ms=time_ms(torch, plain_tttp_buckets, 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"nb={nb} C={c} nd={nd} R={RANK} valid={n_valid}"))
+    gather_bytes["tttp_bucket_view"] = gather_sector_bytes(n_valid * nd,
+                                                           RANK)
 
     # bucketed MTTKRP as the right-hand side b of mode 0 calls it
     # (core.distributed.mttkrp_ctx)
@@ -409,7 +509,6 @@ def phase_timing(torch, run, launches):
     del bk, cols, mvals
 
     # fused CG matvec as the CG loop of mode 0 calls it (als.gram_matvec)
-    bo = omega.row_buckets(mode, BLOCK_ROWS)
     x = fs[mode]
 
     def plain_cg():
@@ -440,10 +539,9 @@ def phase_timing(torch, run, launches):
             f"{row['plain_ms']:9.3f} ms  bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']})  library {row['library_ms']}  "
             f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]")
-        if row["name"] in gather_bytes:
-            g = gather_bytes[row["name"]]
-            log(f"  factor-row gathers: {g / 1e9:.2f} GB of L2 sectors (from "
-                f"shapes), {g / row['ms'] / 1e9:.2f} TB/s")
+        g = gather_bytes[row["name"]]
+        log(f"  factor-row gathers: {g / 1e9:.2f} GB of L2 sectors (from "
+            f"shapes), {g / row['ms'] / 1e9:.2f} TB/s")
     log(f"phase 4: each kernel held against its plain version at rtol "
         f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|")
     return rows_out
@@ -463,9 +561,9 @@ def kernel_group(name):
     return "other"
 
 
-def phase_profile(torch, run):
-    """Device time of one fused sweep by kernel, from torch.profiler, and the
-    device's idle share of the sweep's wall time."""
+def phase_profile(torch, run, path):
+    """Device time of one sweep on matvec route ``path`` by kernel, from
+    torch.profiler, and the device's idle share of the sweep's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.completion.als import als_sweep
@@ -475,7 +573,7 @@ def phase_profile(torch, run):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         als_sweep(st, omega, run.factors, 1e-5, cg_tol=1e-4,
-                  cg_iters=CG_ITERS, matvec_path="fused",
+                  cg_iters=CG_ITERS, matvec_path=path,
                   block_rows=BLOCK_ROWS)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
@@ -489,14 +587,14 @@ def phase_profile(torch, run):
             count[evt.name] = count.get(evt.name, 0) + 1
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
-        log("phase 5: the profiler saw no device time; breakdown not "
-            "measured")
+        log(f"phase 5: the profiler saw no device time in the {path} sweep; "
+            f"breakdown not measured")
         return
     groups = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0, "other": 0.0}
     for name, ms in by_name.items():
         groups[kernel_group(name)] += ms
-    log(f"phase 5: one fused sweep under torch.profiler: wall {wall_ms:.1f} "
-        f"ms, device busy {busy_ms:.1f} ms, idle share "
+    log(f"phase 5: one {path} sweep under torch.profiler: wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; device ms by kernel: " +
         ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -517,9 +615,10 @@ def main():
         f"{torch.cuda.get_device_name(0)}; tf32 off")
     phase_build()
     phase_check(torch, dev)
-    run, launches = phase_main_path(torch)
-    kernels = phase_timing(torch, run, launches)
-    phase_profile(torch, run)
+    run, launches, other_launches = phase_main_path(torch)
+    kernels = phase_timing(torch, run, launches, other_launches)
+    for path in ("fused", "tttp_mttkrp"):
+        phase_profile(torch, run, path)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

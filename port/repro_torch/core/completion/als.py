@@ -9,7 +9,9 @@ without forming G^(i). The batched matvec (paper eq. 3) is
 
 run either as one fused pass over the Ω buckets (``matvec_path="fused"``,
 the fused CG-matvec kernel) or as the TTTP kernel followed by the bucketed
-MTTKRP kernel (``"tttp_mttkrp"``).
+MTTKRP kernel (``"tttp_mttkrp"``), both over Ω's cached bucket view. Both
+take any rank: ``kernels.ops.cg_matvec_bucketed`` runs R above the fused
+kernel's width as TTTP then MTTKRP.
 
 CG runs a fixed ``max_iters`` iterations with no host synchronisation.
 The reference stops as soon as every row has converged; here converged rows
@@ -19,13 +21,14 @@ iterations in which some row was still active stays on the device.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import List, Sequence
 
 import torch
 
 from repro_torch.core.distributed import (LOCAL, AxisCtx, mttkrp_ctx,
-                                          rowdot_ctx, tttp_ctx)
+                                          rowdot_ctx)
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops as kops
 
@@ -47,11 +50,18 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
                                     num_rows=omega.shape[mode])
         return ctx.psum_data(y) + lam * x
     if matvec_path == "tttp_mttkrp":
+        # both halves over Ω's cached bucket view: z comes out in bucket
+        # order and feeds the MTTKRP as that view's values, so nothing is
+        # gathered through the bucket pattern per call
+        buckets = omega.row_buckets(mode, block_rows)
         fs = list(factors)
         fs[mode] = x
-        z = tttp_ctx(omega, fs, ctx)     # z_n = ω_n Σ_s Π a_ds · x_is
+        # z_n = ω_n Σ_s Π a_ds · x_is
+        z = ctx.psum_model(kops.tttp_bucket_values(buckets, fs))
         fs[mode] = None
-        return mttkrp_ctx(z, fs, mode, ctx, block_rows) + lam * x
+        y = kops.mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
+                                 num_rows=omega.shape[mode])
+        return ctx.psum_data(y) + lam * x
     raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
 
 

@@ -2,9 +2,8 @@
 
 The algorithms are written against an :class:`AxisCtx` so the same code can
 later run over a process group; here every reduction over devices is the
-identity. ``tttp_ctx`` and ``mttkrp_ctx`` route straight to the kernels
-(MTTKRP through the tensor's cached CCSR buckets) until the planner is
-ported.
+identity. ``mttkrp_ctx`` routes straight to the bucketed MTTKRP kernel
+through the tensor's cached CCSR buckets until the planner is ported.
 """
 from __future__ import annotations
 
@@ -29,13 +28,6 @@ class AxisCtx:
 
 
 LOCAL = AxisCtx()
-
-
-def tttp_ctx(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]],
-             ctx: AxisCtx = LOCAL) -> SparseTensor:
-    """TTTP: local inner products, psum over the model axis."""
-    vals = kops.tttp_values(st, factors)
-    return st.with_values(ctx.psum_model(vals))
 
 
 def mttkrp_ctx(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]],

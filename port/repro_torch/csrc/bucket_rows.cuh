@@ -160,10 +160,6 @@ cudaError_t launch_rmax(const void* values, const void* indices,
   return cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
-}
-
 // Checks the arguments, then launches bucket_rows_kernel compiled for the
 // least RMAX of 16, 32, 64 and 128 that holds RS. `x` is read only when
 // FUSED. Returns cudaErrorInvalidValue for what the kernel does not take.

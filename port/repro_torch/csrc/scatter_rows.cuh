@@ -31,10 +31,6 @@
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__device__ __forceinline__ float4 operator*(float4 a, float4 b) {
-  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
-}
-
 __device__ __forceinline__ float4 fma4(float s, float4 a, float4 acc) {
   return make_float4(fmaf(s, a.x, acc.x), fmaf(s, a.y, acc.y),
                      fmaf(s, a.z, acc.z), fmaf(s, a.w, acc.w));

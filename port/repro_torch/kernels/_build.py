@@ -29,9 +29,10 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH_FLAGS)
 
-# threads per CTA of every launch; the bucketed kernels are compiled for at
-# most this many (MAX_THREADS in csrc/common.cuh) and take SLOTS
-# (csrc/bucket_rows.cuh) times this many bucket slots per step
+# threads per CTA of every launch; the kernels are compiled for at most this
+# many (MAX_THREADS in csrc/common.cuh); the bucketed ones take SLOTS
+# (csrc/bucket_rows.cuh) times this many bucket slots per step, TTTP NZ
+# (csrc/tttp.cu) times this many nonzeros
 THREADS = 256
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -41,8 +42,9 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _BUCKETED = (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _P, _L, _I, _I, _I, _P,
              _I, _P)
 SIGNATURES = {
-    # values, indices, m, nd, factors[nd], R, out, threads, stream
-    "repro_tttp_f32": (_P, _P, _L, _I, _PTRS, _I, _P, _I, _P),
+    # values, indices, valid, m, nd, factors[nd], R, RS (padded row
+    # stride), out, threads, stream
+    "repro_tttp_f32": (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _P),
     # values (ω for the matvec), indices, local_row, valid, nb, C, nd, mode,
     # factors[nd], x, x_rows, R, RS (padded row stride), block_rows, out,
     # threads, stream; the MTTKRP ignores x and x_rows

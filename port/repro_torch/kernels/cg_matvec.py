@@ -8,7 +8,9 @@ per nonzero and used for both the TTTP half (``z[n] = ω[n]·⟨KR[n],
 x[i]⟩``, with the bucket's rows of ``x`` held in shared memory) and the
 MTTKRP half (``y[i] += z[n]·KR[n]``). The factors and ``x`` reach the
 kernel as zero-padded copies with a 16-byte row stride
-(``kernels.mttkrp.pad_rows``). ``launches`` counts the kernel's launches.
+(``kernels.mttkrp.pad_rows``). It takes R up to ``kernels.mttkrp.MAX_RANK``
+and refuses a wider one: ``kernels.ops.cg_matvec_bucketed`` runs wider R as
+TTTP then MTTKRP. ``launches`` counts the kernel's launches.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels.mttkrp import launch_bucketed
+from repro_torch.kernels.mttkrp import check_buckets, launch_bucketed
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
 launches = 0
@@ -29,8 +31,10 @@ def cg_matvec_cuda(buckets: RowBlockBuckets,
     Returns (nb·block_rows, R) float32; callers slice to the true row
     count."""
     global launches
-    out = launch_bucketed("repro_cg_matvec_bucketed_f32", buckets, factors,
-                          x, x.shape[1])
+    r = x.shape[1]
+    table = check_buckets(buckets, factors, r, x)
+    out = launch_bucketed("repro_cg_matvec_bucketed_f32", buckets, table, x,
+                          r)
     if buckets.num_blocks:
         launches += 1
     return out

@@ -5,14 +5,20 @@ shares with the fused CG matvec (``kernels/cg_matvec.py``).
 Both run one kernel body (``csrc/bucket_rows.cuh``): one CTA per CCSR
 bucket, which sums the bucket's ``block_rows`` output rows in shared memory
 from per-thread running sums (``csrc/scatter_rows.cuh``). The kernel
-gathers factor rows as 16-byte loads, so :func:`launch_bucketed` hands it
-copies of the factors padded with zero columns to a row stride of a
-multiple of 4 floats (:func:`pad_rows`); the zero columns add exact zeros.
+gathers factor rows as 16-byte loads, so the wrappers hand it copies of the
+factors padded with zero columns to a row stride of a multiple of 4 floats
+(:func:`pad_rows`); the zero columns add exact zeros. One launch covers at
+most ``MAX_RANK`` columns, since the body keeps a Khatri-Rao row and a
+running sum in registers: the MTTKRP takes any R as one launch per column
+tile (:func:`column_tiles`), each over a padded copy of the tile's columns,
+and joins the tiles' outputs. (Passing a tile as a pointer into the full
+padded rows would need a row stride apart from the width the body computes,
+and separating the two changed how nvcc compiled the body for R ≤ 128.)
 ``launches`` counts the MTTKRP kernel's launches.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -22,8 +28,9 @@ from repro_torch.sparse.ccsr import RowBlockBuckets
 
 # dynamic shared memory one CTA may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232_448
-# the kernels keep a Khatri-Rao row and a running sum in registers, compiled
-# for padded widths up to this
+# the widest padded row one launch of the bucketed body takes: it keeps a
+# Khatri-Rao row and a running sum in registers, compiled for widths up to
+# this
 MAX_RANK = 128
 # floats per 16-byte vector load of a padded row
 ROW_ALIGN = 4
@@ -43,19 +50,33 @@ def pad_rows(t: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(t, (0, width - r)).contiguous()
 
 
-def check_buckets(buckets: RowBlockBuckets, r: int,
-                  fused: bool) -> torch.device:
-    """Validate the bucket arrays and the shared-memory rows (the
-    (block_rows, padded R) sums, and as many rows of x when ``fused``) for
-    a launch; returns their device."""
+def column_tiles(r: int) -> List[Tuple[int, int]]:
+    """``(first column, width)`` of the launches that cover R columns: tiles
+    of ``MAX_RANK`` columns from column 0 and the rest, so every tile starts
+    at a multiple of 4 floats (16 bytes) of a padded row. One tile, (0, R),
+    for R ≤ ``MAX_RANK``."""
+    return [(c0, min(MAX_RANK, r - c0)) for c0 in range(0, r, MAX_RANK)]
+
+
+def check_buckets(buckets: RowBlockBuckets, factors, r: int,
+                  x: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+    """Check the bucket arrays, the factors and ``x`` (given for the fused
+    matvec) for launches over ``r`` columns, and the shared-memory rows of
+    the widest launch (its (block_rows, padded width) sums, and as many rows
+    of x when fused). Returns the factor table the kernels take: None at
+    ``buckets.mode`` and for absent factors."""
     dev = buckets.values.device
     nb, c = buckets.values.shape
     nd = buckets.indices.shape[-1]
+    if len(factors) != nd:
+        raise ValueError(f"{len(factors)} factors for an order-{nd} tensor")
     if nd > 8:
         raise ValueError(f"order {nd} > 8: the kernels take at most 8 modes")
-    if r > MAX_RANK:
-        raise ValueError(f"R={r} > {MAX_RANK}: the bucketed kernels keep a "
-                         f"Khatri-Rao row in registers up to R={MAX_RANK}")
+    if x is not None and r > MAX_RANK:
+        raise ValueError(f"R={r} > {MAX_RANK}: the fused kernel keeps a "
+                         f"Khatri-Rao row in registers up to R={MAX_RANK}; "
+                         f"kernels.ops.cg_matvec_bucketed routes wider R "
+                         f"through TTTP and the MTTKRP")
     _build.check_operand("bucket values", buckets.values, torch.float32, dev)
     _build.check_operand("bucket indices", buckets.indices, torch.int32, dev,
                          (nb, c, nd))
@@ -63,42 +84,40 @@ def check_buckets(buckets: RowBlockBuckets, r: int,
                          dev, (nb, c))
     _build.check_operand("bucket valid", buckets.valid, torch.bool, dev,
                          (nb, c))
-    smem = 4 * buckets.block_rows * round_up(r, ROW_ALIGN) * (2 if fused
-                                                              else 1)
+    width = round_up(min(r, MAX_RANK), ROW_ALIGN)
+    smem = 4 * buckets.block_rows * width * (1 if x is None else 2)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"{smem} B of shared-memory rows exceed the "
                          f"{MAX_SMEM_BYTES} B a CTA may use")
-    return dev
-
-
-def launch_bucketed(name: str, buckets: RowBlockBuckets,
-                    factors: Sequence[Optional[torch.Tensor]],
-                    x: Optional[torch.Tensor], r: int) -> torch.Tensor:
-    """Launch the bucketed kernel ``name`` (the fused matvec when ``x`` is
-    given) after checking its operands; factors at ``buckets.mode`` and None
-    factors are skipped. Returns (nb·block_rows, R) float32."""
-    nb, c = buckets.values.shape
-    nd = buckets.indices.shape[-1]
-    mode = buckets.mode
-    if len(factors) != nd:
-        raise ValueError(f"{len(factors)} factors for an order-{nd} tensor")
-    dev = check_buckets(buckets, r, x is not None)
-    table = [None if d == mode else f for d, f in enumerate(factors)]
+    table = [None if d == buckets.mode else f for d, f in enumerate(factors)]
     _build.check_factors(table, r, torch.float32, dev)
     if x is not None:
         _build.check_operand("x", x, torch.float32, dev, (x.shape[0], r))
+    return table
+
+
+def launch_bucketed(name: str, buckets: RowBlockBuckets,
+                    table: Sequence[Optional[torch.Tensor]],
+                    x: Optional[torch.Tensor], r: int) -> torch.Tensor:
+    """Launch the bucketed kernel ``name`` (the fused matvec when ``x`` is
+    given) once over the ``r`` ≤ ``MAX_RANK`` columns of a factor table from
+    :func:`check_buckets`, on zero-padded copies of the factors and x.
+    Returns (nb·block_rows, r) float32; launches nothing when there are no
+    buckets."""
+    nb, c = buckets.values.shape
+    dev = buckets.values.device
     out = torch.empty(nb * buckets.block_rows, r, dtype=torch.float32,
                       device=dev)
     if nb == 0:
         return out
     padded = [None if f is None else pad_rows(f) for f in table]
     xp = None if x is None else pad_rows(x)
-    ptrs = _build.pointer_table(padded)
     with torch.cuda.device(dev):
         _build.launch(name, buckets.values.data_ptr(),
                       buckets.indices.data_ptr(),
                       buckets.local_row.data_ptr(), buckets.valid.data_ptr(),
-                      nb, c, nd, mode, ptrs,
+                      nb, c, buckets.indices.shape[-1], buckets.mode,
+                      _build.pointer_table(padded),
                       None if xp is None else xp.data_ptr(),
                       0 if xp is None else xp.shape[0], r,
                       round_up(r, ROW_ALIGN), buckets.block_rows,
@@ -110,15 +129,22 @@ def launch_bucketed(name: str, buckets: RowBlockBuckets,
 def mttkrp_cuda(buckets: RowBlockBuckets,
                 factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
     """Bucketed MTTKRP; factors at ``buckets.mode`` and None factors are
-    skipped. Returns (nb·block_rows, R) float32; callers slice to
-    ``shape[mode]`` rows."""
+    skipped. One launch per column tile (:func:`column_tiles`), the tiles'
+    outputs joined by columns. Returns (nb·block_rows, R) float32; callers
+    slice to ``shape[mode]`` rows."""
     global launches
     other = [f for d, f in enumerate(factors)
              if d != buckets.mode and f is not None]
     if not other:
         raise ValueError("MTTKRP requires at least one non-target factor")
-    out = launch_bucketed("repro_mttkrp_bucketed_f32", buckets, factors,
-                          None, other[0].shape[1])
-    if buckets.num_blocks:
-        launches += 1
-    return out
+    r = other[0].shape[1]
+    table = check_buckets(buckets, factors, r, None)
+    outs = []
+    for c0, w in column_tiles(r):
+        # a tile of all R columns is the factor itself (same storage)
+        tile = [None if f is None else f[:, c0:c0 + w] for f in table]
+        outs.append(launch_bucketed("repro_mttkrp_bucketed_f32", buckets,
+                                    tile, None, w))
+        if buckets.num_blocks:
+            launches += 1
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -17,6 +17,7 @@ Each kernel module counts its launches in a plain integer ``launches``;
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import torch
@@ -43,16 +44,34 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
-def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]]
-                ) -> torch.Tensor:
-    """TTTP output values for a padded-COO SparseTensor. Vector factors are
-    promoted to single-column matrices."""
+def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
+          factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+    """TTTP over flat (m,) slots, 0 where ``valid`` is false. Vector factors
+    are promoted to single-column matrices."""
     factors = [None if f is None else (f[:, None] if f.dim() == 1 else f)
                for f in factors]
-    vals = st.values * st.mask
-    if not _on_card(vals):
-        return kref.tttp_ref(vals, st.indices, factors)
-    return ktttp.tttp_cuda(vals, st.indices, factors)
+    if not _on_card(values):
+        return kref.tttp_ref(values, indices, valid, factors)
+    return ktttp.tttp_cuda(values, indices, valid, factors)
+
+
+def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]]
+                ) -> torch.Tensor:
+    """TTTP output values for a padded-COO SparseTensor, 0 on padding."""
+    return _tttp(st.values, st.indices, st.valid, factors)
+
+
+def tttp_bucket_values(buckets, factors: Sequence[Optional[torch.Tensor]]
+                       ) -> torch.Tensor:
+    """TTTP over a CCSR bucket view (``RowBlockBuckets``): its nb·C slots
+    flattened, so the same kernel runs on them. Returns (nb, C) in bucket
+    order, 0 on padding slots: the values of a bucket view of the COO
+    result, with no gather through the pattern."""
+    nb, c, nd = buckets.indices.shape
+    out = _tttp(buckets.values.reshape(nb * c),
+                buckets.indices.reshape(nb * c, nd),
+                buckets.valid.reshape(nb * c), factors)
+    return out.view(nb, c)
 
 
 def tttp(st: SparseTensor, factors) -> SparseTensor:
@@ -61,7 +80,9 @@ def tttp(st: SparseTensor, factors) -> SparseTensor:
 
 def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                     num_rows: Optional[int] = None) -> torch.Tensor:
-    """All-at-once MTTKRP over ingest-time buckets; returns (num_rows, R)."""
+    """All-at-once MTTKRP over ingest-time buckets; returns (num_rows, R).
+    On the card any R: one launch per column tile of at most
+    ``kernels.mttkrp.MAX_RANK`` columns."""
     num_rows = num_rows or buckets.shape[buckets.mode]
     if not _on_card(buckets.values):
         out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
@@ -74,11 +95,27 @@ def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
 def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                        x: torch.Tensor, num_rows: Optional[int] = None
                        ) -> torch.Tensor:
-    """Fused implicit-CG Gram matvec; buckets hold the Ω indicator values."""
+    """Implicit-CG Gram matvec (paper eq. 3) over the Ω buckets (their
+    values are the weights ω), routed by rank on both devices:
+
+    - R ≤ ``kernels.mttkrp.MAX_RANK``: one fused pass (the fused CG-matvec
+      kernel on the card);
+    - wider R: TTTP over the same bucket view, ``z = ω·⟨KR, x_i⟩``
+      (:func:`tttp_bucket_values`), then the bucketed MTTKRP with values z,
+      one launch per column tile on the card. The fused kernel keeps a
+      Khatri-Rao row and x's rows resident, which it cannot at that width."""
     num_rows = num_rows or buckets.shape[buckets.mode]
+    mode = buckets.mode
+    if x.shape[1] > kmttkrp.MAX_RANK:
+        fs = list(factors)
+        fs[mode] = x
+        z = tttp_bucket_values(buckets, fs)
+        fs[mode] = None
+        return mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
+                               num_rows)
     if not _on_card(buckets.values):
         out = kref.cg_matvec_bucketed_ref(buckets.values, buckets.indices,
                                           buckets.local_row, factors, x,
-                                          buckets.mode, buckets.block_rows)
+                                          mode, buckets.block_rows)
         return out[:num_rows]
     return kcg.cg_matvec_cuda(buckets, factors, x)[:num_rows]

@@ -11,15 +11,17 @@ from repro_torch.kernels.tile import scatter_rows
 
 
 def tttp_ref(values: torch.Tensor, indices: torch.Tensor,
+             valid: torch.Tensor,
              factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
-    """x_n = values_n · Σ_r Π_j factors[j][indices[n, j], r]."""
+    """x_n = values_n · Σ_r Π_j factors[j][indices[n, j], r] where
+    ``valid[n]``, exactly 0 elsewhere."""
     prod = None
     for d, f in enumerate(factors):
         if f is None:
             continue
         rows = f[indices[:, d]]
         prod = rows if prod is None else prod * rows
-    return values * prod.sum(dim=1)
+    return torch.where(valid, values * prod.sum(dim=1), 0)
 
 
 def _segment_sum(contrib: torch.Tensor, blocal: torch.Tensor,

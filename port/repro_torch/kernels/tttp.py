@@ -1,8 +1,12 @@
 """TTTP on the card: the wrapper of ``csrc/tttp.cu``, which replaces the
 reference's ``kernels/tttp.py:tttp_pallas``.
 
-``out[n] = values[n] · Σ_r Π_{d present} A_d[indices[n, d], r]``, one thread
-per nonzero, no scatter. ``launches`` counts the kernel's launches.
+``out[n] = valid[n] ? values[n] · Σ_r Π_{d present} A_d[indices[n, d], r]
+: 0``, no scatter. The kernel reads the valid mask itself and gathers factor
+rows as 16-byte loads, so the wrapper hands it zero-padded copies of the
+factors with a row stride of a multiple of 4 floats
+(``kernels.mttkrp.pad_rows``). It takes any R. ``launches`` counts the
+kernel's launches.
 """
 from __future__ import annotations
 
@@ -10,16 +14,19 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.core.utils import round_up
 from repro_torch.kernels import _build
+from repro_torch.kernels.mttkrp import ROW_ALIGN, pad_rows
 
 launches = 0
 
 
 def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
+              valid: torch.Tensor,
               factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
-    """``values (m,)`` float32, ``indices (m, nd)`` int32, ``factors[d]``
-    ``(shape[d], R)`` float32 or None, all contiguous on one CUDA device.
-    Returns (m,) float32."""
+    """``values (m,)`` float32, ``indices (m, nd)`` int32, ``valid (m,)``
+    bool, ``factors[d]`` ``(shape[d], R)`` float32 or None, all contiguous
+    on one CUDA device. Returns (m,) float32, 0 where ``valid`` is false."""
     global launches
     dev = values.device
     m, nd = indices.shape
@@ -28,17 +35,22 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
     present = [f for f in factors if f is not None]
     if not present:
         raise ValueError("TTTP requires at least one factor")
+    if nd > 8:
+        raise ValueError(f"order {nd} > 8: the kernel takes at most 8 modes")
     r = present[0].shape[1]
     _build.check_operand("values", values, torch.float32, dev, (m,))
     _build.check_operand("indices", indices, torch.int32, dev)
+    _build.check_operand("valid", valid, torch.bool, dev, (m,))
     _build.check_factors(factors, r, torch.float32, dev)
     out = torch.empty(m, dtype=torch.float32, device=dev)
     if m == 0:
         return out
-    table = _build.pointer_table(factors)
+    padded = [None if f is None else pad_rows(f) for f in factors]
+    table = _build.pointer_table(padded)
     with torch.cuda.device(dev):
         _build.launch("repro_tttp_f32", values.data_ptr(), indices.data_ptr(),
-                      m, nd, table, r, out.data_ptr(), _build.THREADS,
+                      valid.data_ptr(), m, nd, table, r,
+                      round_up(r, ROW_ALIGN), out.data_ptr(), _build.THREADS,
                       torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
     return out

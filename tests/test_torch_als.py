@@ -26,6 +26,7 @@ sys.path.insert(0, PORT)
 from repro_torch import interop
 from repro_torch.core.completion import als
 from repro_torch.launch import complete
+from repro_torch.sparse import ccsr
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 LAM, CG_TOL, CG_ITERS = 1e-5, 1e-4, 12
@@ -104,6 +105,54 @@ def test_als_sweep_matches_reference(order, path):
     got = als.als_sweep(t, to, tf, LAM, cg_tol=CG_TOL, cg_iters=CG_ITERS,
                         matvec_path=path)
     _close(got, want)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_als_sweep_at_rank_160_matches_reference(path):
+    """R = 160 is wider than one launch of the bucketed kernels: the fused
+    route's matvec runs as TTTP then MTTKRP, the MTTKRP in column tiles on
+    the card. One sweep matches the reference's at rtol 1e-4 and an atol of
+    1e-4 of each factor's largest entry: with about 8 nonzeros per row each
+    160 × 160 system is held up by λ = 1e-5 alone, and CG carries float32
+    summation order far enough that two float32 implementations (the
+    reference's own default and h_slices=2 routes among them) differ by
+    more than a flat 1e-4 on factor 0, whose entries reach about 10."""
+    idx, vals, valid, factors = _arrays(5, (16, 12, 8), 120, 160)
+    j = JSparseTensor(jnp.asarray(idx), jnp.asarray(vals), jnp.asarray(valid),
+                      (16, 12, 8), 120)
+    t = interop.sparse_from_numpy(idx, vals, valid, (16, 12, 8), "cpu")
+    want = jals.als_sweep(j, j.with_values(jnp.ones_like(j.values)),
+                          [jnp.asarray(f) for f in factors], LAM,
+                          cg_tol=CG_TOL, cg_iters=CG_ITERS)
+    got = als.als_sweep(t, t.with_values(torch.ones_like(t.values)),
+                        interop.factors_from_numpy(factors, "cpu"), LAM,
+                        cg_tol=CG_TOL, cg_iters=CG_ITERS, matvec_path=path)
+    for d, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-4,
+                                   atol=1e-4 * np.abs(w).max(),
+                                   err_msg=f"factor {d}")
+
+
+def test_tttp_mttkrp_route_gathers_no_bucket_values(monkeypatch):
+    """The TTTP half runs over Ω's cached bucket view and its z feeds the
+    MTTKRP as that view's values: after the first call (which gathers Ω's
+    view) no call gathers bucket values through the pattern."""
+    j, jo, jf, t, to, tf = _problem(3, seed=5)
+    calls = []
+    gather = ccsr.BucketPattern.gather
+    monkeypatch.setattr(ccsr.BucketPattern, "gather",
+                        lambda self, st: calls.append(1) or gather(self, st))
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        tf[0].shape).astype(np.float32))
+    first = als.gram_matvec(to, tf, 0, x, LAM, matvec_path="tttp_mttkrp")
+    n = len(calls)
+    second = als.gram_matvec(to, tf, 0, x, LAM, matvec_path="tttp_mttkrp")
+    assert len(calls) == n <= 1
+    assert torch.equal(first, second)
+    np.testing.assert_allclose(
+        second.numpy(), np.asarray(jals.gram_matvec(jo, jf, 0, jnp.asarray(x),
+                                                    LAM)), **TOL)
 
 
 def test_explicit_baseline_matches_reference_and_implicit_cg():

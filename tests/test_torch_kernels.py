@@ -7,6 +7,7 @@ Tolerance rtol = atol = 1e-4, the reference's own (tests/test_golden.py),
 for sums taken in different orders. The CUDA kernels themselves run only on
 a card: tests/test_torch_cuda.py holds them against the plain versions
 there."""
+import dataclasses
 import os
 import sys
 
@@ -186,7 +187,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     bk = t.row_buckets(0, 8)
     kops.reset_launch_counts()
     with pytest.raises(ValueError, match="CUDA"):
-        ktttp.tttp_cuda(t.values, t.indices, tf)
+        ktttp.tttp_cuda(t.values, t.indices, t.valid, tf)
     with pytest.raises(ValueError, match="CUDA"):
         kmttkrp.mttkrp_cuda(bk, _drop(tf, 0))
     with pytest.raises(ValueError, match="CUDA"):
@@ -195,20 +196,76 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("kernel", ["mttkrp", "cg_matvec"])
-def test_bucketed_cuda_wrappers_refuse_rank_over_128(kernel):
-    """Both bucketed kernels keep a Khatri-Rao row and a running sum in
-    registers for padded widths up to 128 and refuse a wider R before they
-    look at the device, so the refusal shows on the CPU too."""
-    j, jf, t, tf = _problem(8, (16, 12, 8), 120, 10)
-    bk = t.row_buckets(0, 8)
-    wide = [torch.zeros(f.shape[0], 129) for f in tf]
-    kops.reset_launch_counts()
-    with pytest.raises(ValueError, match="R=129"):
-        if kernel == "mttkrp":
-            kmttkrp.mttkrp_cuda(bk, _drop(wide, 0))
-        else:
-            kcg.cg_matvec_cuda(bk, wide, wide[0])
-    assert kops.launch_counts() == {"tttp": 0, "mttkrp": 0, "cg_matvec": 0}
+def test_bucketed_routes_at_rank_160_match_pallas(kernel):
+    """R = 160 is wider than one launch of the bucketed body: the MTTKRP
+    runs as column tiles on the card and the Gram matvec as TTTP over the
+    bucket view then the MTTKRP, on both devices. Both match the Pallas
+    kernels, which take any R."""
+    j, jf, t, tf = _problem(8, (16, 12, 8), 120, 160)
+    if kernel == "mttkrp":
+        jb, tb = _buckets(j, t, 0, 8)
+        want = jkops.mttkrp_bucketed(jb, _drop(jf, 0), use_pallas=True)
+        got = kops.mttkrp_bucketed(tb, _drop(tf, 0))
+    else:
+        jo = j.with_values(jnp.ones_like(j.values))
+        to = t.with_values(torch.ones_like(t.values))
+        jb, tb = _buckets(jo, to, 0, 8)
+        x = np.random.default_rng(9).standard_normal((16, 160)) \
+            .astype(np.float32)
+        want = jkops.cg_matvec_bucketed(jb, jf, jnp.asarray(x),
+                                        use_pallas=True)
+        got = kops.cg_matvec_bucketed(tb, tf, torch.from_numpy(x))
+        # the one-pass plain version agrees with the two-kernel route
+        np.testing.assert_allclose(
+            got.numpy(), kref.cg_matvec_bucketed_ref(
+                tb.values, tb.indices, tb.local_row, tf, torch.from_numpy(x),
+                0, 8)[:16].numpy(), **TOL)
+    assert got.shape == (16, 160)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("r", [10, 128, 129, 160, 300])
+def test_column_tiles_cover_rank(r):
+    """The MTTKRP's launches cover [0, R) once, in tiles of at most 128
+    columns that start at multiples of 4 floats (16-byte-aligned pointers
+    into a padded row); R ≤ 128 is one launch of all R columns."""
+    tiles = kmttkrp.column_tiles(r)
+    assert all(0 < w <= kmttkrp.MAX_RANK and c0 % 4 == 0 for c0, w in tiles)
+    assert [c for c0, w in tiles for c in range(c0, c0 + w)] == list(range(r))
+    if r <= kmttkrp.MAX_RANK:
+        assert tiles == [(0, r)]
+
+
+@pytest.mark.parametrize("shape,mode,missing", [((30, 20, 10), 0, 2),
+                                                ((14, 12, 10, 8), 3, 1)])
+def test_tttp_bucket_values_match_reference(shape, mode, missing):
+    """TTTP over a bucket view gives the JAX TTTP of the same nonzeros in
+    bucket order (reordered by the pattern's sel), 0 on padding slots."""
+    j, jf, t, tf = _problem(13, shape, 400, 10)
+    jf, tf = _drop(jf, missing), _drop(tf, missing)
+    pat = ccsr.bucket_pattern(t, mode, 8)
+    bk = pat.gather(t)
+    coo = np.asarray(jkops.tttp_values(j, jf, use_pallas=True, block_m=64,
+                                       block_r=32))
+    want = np.where(bk.valid.numpy(), coo[pat.sel.numpy()], 0)
+    got = kops.tttp_bucket_values(bk, tf)
+    assert got.shape == bk.values.shape
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert not got[~bk.valid].any()
+
+
+def test_tttp_values_zero_on_padding_with_nonzero_values():
+    """The TTTP reads the valid mask itself: padding slots give exactly 0
+    whatever their values hold, valid slots the reference's TTTP."""
+    j, jf, t, tf = _problem(14, (21, 17, 9), 150, 10, half_mode0=False)
+    vals = t.values.clone()
+    vals[~t.valid] = 5.0
+    # not with_values, which would zero the padding slots' values
+    got = kops.tttp_values(dataclasses.replace(t, values=vals), tf)
+    assert (got[~t.valid] == 0).all()
+    want = np.asarray(jkops.tttp_values(j, jf, use_pallas=True, block_m=64,
+                                        block_r=32))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("schedule", ["onehot", "segmented"])
