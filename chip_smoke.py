@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-six phases and stops with a non-zero exit at the first failure:
+seven phases and stops with a non-zero exit at the first failure:
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each kernel's registers and spills;
@@ -49,8 +49,29 @@ six phases and stops with a non-zero exit at the first failure:
    bucket values were gathered in phase 3, once per tensor and mode, and
    the ``tttp_mttkrp`` route gathers none per call, so no gather of 81 M
    values shows here);
-6. print the kernel table as one JSON line, the card's name and power limit,
-   and, last, ``{"ok": true, "device": {...}}``.
+6. run the generalized-loss solvers at full width on phase 3's dataset and
+   initial factors (no second ingest), each run through
+   ``repro_torch.launch.complete.run_solver`` with the launch counts zeroed
+   before and read after: two GGN iterations (``poisson_log``, fused
+   matvec, the reference's defaults: 20 CG, 15 joint and 8 preconditioner
+   iterations, damping 1e-5), whose objective must be finite, must not rise
+   and must fall over the two, each launching all three kernels; the fused
+   matvec at the curvature weights against its plain version; one
+   ``ggn_update_mode`` (quadratic, damping 0, mode 0) against
+   ``als_update_mode`` from the same factors, both to a 1e-8 residual in 40
+   CG iterations, at rtol 2e-3 (atol 2e-3 of the largest entry); one sweep
+   of each CCD++ variant, whose RMSE must fall and whose factors must agree
+   at rtol 1e-3 (atol 1e-3 of the largest entry), the TTTP variant
+   launching TTTP 2·N·R times in its sweep; TTTP on vector factors (as
+   CCD++ calls it) held against its plain version and timed; one Adam step
+   of GCP (``poisson_log``, lr 1e-3) and one SGD sweep (sample rate 0.1),
+   finite, each launching TTTP and the MTTKRP, with the share of the SGD
+   sweep that the sample's bucket patterns take, and the MTTKRP held on a
+   sample's bucket view; then one GGN iteration under torch.profiler;
+7. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3 and 6 under
+   ``path_launches``), the card's name and power limit, and, last,
+   ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -315,14 +336,18 @@ def phase_check(torch, dev):
 # phase 3
 # ---------------------------------------------------------------------------
 
+def main_argv():
+    """The CLI's arguments of the main path's problem."""
+    return ["--dataset", "function", "--dims", ",".join(map(str, DIMS)),
+            "--nnz", str(NNZ), "--rank", str(RANK), "--cg-iters",
+            str(CG_ITERS), "--block-rows", str(BLOCK_ROWS), "--sweeps",
+            str(SWEEPS), "--seed", str(SEED), "--device", "cuda"]
+
+
 def phase_main_path(torch):
     from repro_torch.kernels import ops as kops
     from repro_torch.launch import complete
-    argv = ["--algorithm", "als", "--dataset", "function",
-            "--dims", ",".join(map(str, DIMS)), "--nnz", str(NNZ),
-            "--rank", str(RANK), "--cg-iters", str(CG_ITERS),
-            "--block-rows", str(BLOCK_ROWS), "--sweeps", str(SWEEPS),
-            "--seed", str(SEED), "--device", "cuda"]
+    argv = ["--algorithm", "als"] + main_argv()
     log(f"phase 3: main path, nnz={NNZ} at dims {DIMS} (no cut)")
     kops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -352,7 +377,7 @@ def phase_main_path(torch):
     args.sweeps = 1
     kops.reset_launch_counts()
     t0 = time.perf_counter()
-    other = complete.run_als(args, run.dataset, run.init_factors)
+    other = complete.run_solver(args, run.dataset, run.init_factors)
     torch.cuda.synchronize()
     other_launches = kops.launch_counts()
     log(f"  tttp_mttkrp run: {time.perf_counter() - t0:.1f} s, sweep "
@@ -561,20 +586,17 @@ def kernel_group(name):
     return "other"
 
 
-def phase_profile(torch, run, path):
-    """Device time of one sweep on matvec route ``path`` by kernel, from
-    torch.profiler, and the device's idle share of the sweep's wall time."""
+def profile(torch, label, fn, top=8):
+    """Device time of ``fn()`` by kernel, from torch.profiler, the device's
+    idle share of its wall time, and the costliest device kernels (the
+    port's three and aten's) with their launch counts."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.completion.als import als_sweep
-    st, omega = run.dataset.tensor, run.dataset.omega
+    from torch.profiler import ProfilerActivity, profile as tprofile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        als_sweep(st, omega, run.factors, 1e-5, cg_tol=1e-4,
-                  cg_iters=CG_ITERS, matvec_path=path,
-                  block_rows=BLOCK_ROWS)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels, copies): key_averages() would also
@@ -587,18 +609,250 @@ def phase_profile(torch, run, path):
             count[evt.name] = count.get(evt.name, 0) + 1
     busy_ms = sum(by_name.values())
     if busy_ms == 0:
-        log(f"phase 5: the profiler saw no device time in the {path} sweep; "
-            f"breakdown not measured")
+        log(f"{label}: the profiler saw no device time; breakdown not "
+            f"measured")
         return
     groups = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0, "other": 0.0}
+    launches = {k: 0 for k in groups}
     for name, ms in by_name.items():
         groups[kernel_group(name)] += ms
-    log(f"phase 5: one {path} sweep under torch.profiler: wall "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}; device ms by kernel: " +
-        ", ".join(f"{k} {v:.1f}" for k, v in groups.items()))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        launches[kernel_group(name)] += count[name]
+    log(f"{label} under torch.profiler: wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}; device "
+        f"ms (launches) by kernel: " +
+        ", ".join(f"{k} {v:.1f} ({launches[k]})" for k, v in groups.items()))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:top]:
         log(f"  {ms:8.2f} ms  {count[name]:4d}x  {name[:110]}")
+
+
+def phase_profile(torch, run, path):
+    """One ALS sweep on matvec route ``path`` under the profiler."""
+    from repro_torch.core.completion.als import als_sweep
+    st, omega = run.dataset.tensor, run.dataset.omega
+    profile(torch, f"phase 5: one {path} sweep",
+            lambda: als_sweep(st, omega, run.factors, 1e-5, cg_tol=1e-4,
+                              cg_iters=CG_ITERS, matvec_path=path,
+                              block_rows=BLOCK_ROWS))
+
+
+# ---------------------------------------------------------------------------
+# phase 6
+# ---------------------------------------------------------------------------
+
+# GGN at the reference CLI's defaults (src/repro/launch/complete.py and
+# completion/gauss_newton.py): cg_iters 20, 15 joint and 8 preconditioner
+# iterations, damping 1e-5; two iterations
+GGN_LOSS = "poisson_log"
+GGN_ITERATIONS = 2
+JOINT_ITERS, PRECOND_ITERS = 15, 8
+
+
+def solver_args(algorithm, **flags):
+    """The CLI's arguments for ``algorithm`` on phase 3's problem."""
+    from repro_torch.launch import complete
+    argv = main_argv() + ["--algorithm", algorithm]
+    for k, v in flags.items():
+        argv += [f"--{k.replace('_', '-')}", str(v)]
+    return complete.build_parser().parse_args(argv)
+
+
+def solver_run(torch, label, args, ds, factors):
+    """``complete.run_solver`` with every launch count zeroed just before
+    and read just after; fails unless the factors are finite."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import complete
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = complete.run_solver(args, ds, factors)
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    if not all(bool(torch.isfinite(f).all()) for f in res.factors):
+        raise SystemExit(f"phase 6: {label} gave non-finite factors")
+    log(f"  {label}: {time.perf_counter() - t0:.1f} s, sweeps "
+        f"{[round(h[1] * 1e3, 1) for h in res.history]} ms, launches "
+        f"{launches}")
+    return res, launches
+
+
+def held_close(torch, what, got, want, rtol):
+    """``got`` within rtol and an atol of rtol × max |want| of ``want``."""
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=rtol, atol=rtol * scale,
+                               msg=lambda m: f"phase 6: {what}: {m}")
+    return float((got - want).abs().max()), scale
+
+
+def phase_solvers(torch, run):
+    """The generalized-loss solvers at full width, on phase 3's dataset
+    and initial factors (no second ingest). Returns the launch counts of
+    each run and the kernel rows of this slice's new shapes."""
+    from repro_torch.core import losses
+    from repro_torch.core.completion import als, ccd, gauss_newton, sgd
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.sparse.ccsr import bucket_pattern
+    ds, init = run.dataset, run.init_factors
+    st, omega = ds.tensor, ds.omega
+    nd = st.ndim
+    counts = {}
+    log(f"phase 6: generalized-loss solvers on phase 3's tensor (nnz={NNZ}, "
+        f"dims {DIMS}, R={RANK}), from its initial factors")
+
+    # GGN, poisson_log, fused matvec, two iterations
+    args = solver_args("ggn", loss=GGN_LOSS, sweeps=GGN_ITERATIONS,
+                       matvec_path="fused", damping=1e-5)
+    res, counts["ggn"] = solver_run(torch, f"ggn {GGN_LOSS} fused", args, ds,
+                                    init)
+    obj = res.objective
+    if not all(math.isfinite(o) for o in obj):
+        raise SystemExit(f"phase 6: GGN objective not finite: {obj}")
+    if any(b > a for a, b in zip(obj, obj[1:])) or not obj[-1] < obj[0]:
+        raise SystemExit(f"phase 6: GGN objective rose or did not fall: "
+                         f"{obj}")
+    # per iteration: curvature TTTP, N per joint matvec, f0 and the line
+    # search, N curvature TTTPs of the per-mode pass, two accept/reject
+    # objectives; the MTTKRP for the gradients, N per joint matvec, and the
+    # gradient and diagonal of each mode; the fused matvec (1 + joint) ×
+    # N × precond in the preconditioner and N × (1 + cg) in the per-mode pass
+    expect = {"tttp": 1 + nd * JOINT_ITERS + 12 + nd + 2,
+              "mttkrp": nd + nd * JOINT_ITERS + 2 * nd,
+              "cg_matvec": (1 + JOINT_ITERS) * nd * PRECOND_ITERS
+              + nd * (1 + CG_ITERS)}
+    for i, (h, n) in enumerate(zip(res.history, res.sweep_launches)):
+        log(f"  GGN iteration {i}: {h[1] * 1e3:.1f} ms, objective "
+            f"{obj[i]:.8g} -> {obj[i + 1]:.8g}, damping {res.damping[i]:.3g}, "
+            f"rmse {h[2]:.6f}, launches {n} (expected {expect})")
+        if any(v == 0 for v in n.values()):
+            raise SystemExit(f"phase 6: GGN iteration {i} did not launch "
+                             f"every kernel: {n}")
+    ggn_state = gauss_newton.GGNState(
+        tuple(res.factors), torch.full((), res.damping[-1], device=st.device))
+
+    # the weighted fused matvec at curvature weights, against its plain
+    # version, at the main path's shapes
+    w_st, _ = gauss_newton.curvature_tensor(st, init, losses.LOSSES[GGN_LOSS])
+    bw = w_st.row_buckets(0, BLOCK_ROWS)
+    x = init[0]
+    err = held(torch, "cg_matvec_bucketed at curvature weights",
+               kops.cg_matvec_bucketed(bw, init, x, num_rows=DIMS[0]),
+               kref.cg_matvec_bucketed_ref(bw.values, bw.indices,
+                                           bw.local_row, init, x, 0,
+                                           BLOCK_ROWS)[:DIMS[0]])
+    log(f"  fused matvec at poisson_log curvature weights (max "
+        f"{float(w_st.values.max()):.3e}) vs plain: max |err| {err:.2e}")
+    del w_st, bw
+
+    # GGN's per-mode pass against ALS: quadratic loss, damping 0, mode 0
+    kops.reset_launch_counts()
+    g = gauss_newton.ggn_update_mode(st, list(init), 0, losses.quadratic,
+                                     1e-5, 0.0, cg_tol=1e-8, cg_iters=40,
+                                     matvec_path="fused",
+                                     block_rows=BLOCK_ROWS)
+    a = als.als_update_mode(st, omega, list(init), 0, 1e-5, cg_tol=1e-8,
+                            cg_iters=40, matvec_path="fused",
+                            block_rows=BLOCK_ROWS)
+    torch.cuda.synchronize()
+    counts["ggn_update_mode vs als"] = kops.launch_counts()
+    err, scale = held_close(torch, "quadratic ggn_update_mode vs "
+                            "als_update_mode", g, a, 2e-3)
+    log(f"  quadratic ggn_update_mode vs als_update_mode (mode 0, damping "
+        f"0, 40 CG iterations to 1e-8): max |diff| {err:.3e} (max |als| "
+        f"{scale:.3e}), launches {counts['ggn_update_mode vs als']}")
+    del g, a
+
+    # CCD++, both variants, one sweep each from the same start
+    ccd_runs = {}
+    for algo in ("ccd", "ccd_tttp"):
+        res, counts[algo] = solver_run(torch, algo,
+                                       solver_args(algo, sweeps=1),
+                                       ds, init)
+        errs = [res.rmse0, res.history[0][2]]
+        if not all(math.isfinite(e) for e in errs) or not errs[1] < errs[0]:
+            raise SystemExit(f"phase 6: {algo} RMSE not finite or did not "
+                             f"fall: {errs}")
+        log(f"  {algo}: RMSE {errs[0]:.6f} -> {errs[1]:.6f}")
+        ccd_runs[algo] = res
+    want = 2 * nd * RANK
+    if ccd_runs["ccd_tttp"].sweep_launches[0]["tttp"] != want:
+        raise SystemExit(f"phase 6: ccd_tttp launched TTTP "
+                         f"{ccd_runs['ccd_tttp'].sweep_launches[0]} in its "
+                         f"sweep, expected {want} (2 x N x R)")
+    for d, (p, q) in enumerate(zip(ccd_runs["ccd_tttp"].factors,
+                                   ccd_runs["ccd"].factors)):
+        err, scale = held_close(torch, f"ccd_tttp vs ccd factor {d}", p, q,
+                                1e-3)
+        log(f"  factor {d}: max |ccd_tttp - ccd| {err:.3e} (max |ccd| "
+            f"{scale:.3e})")
+
+    # TTTP on vector factors as the CCD++ column update calls it
+    cols = [None] + [f[:, 0].contiguous() for f in init[1:]]
+    ones = st.with_values(torch.ones_like(st.values))
+    vec = [None if c is None else c[:, None] for c in cols]
+    err = held(torch, "tttp on vector factors",
+               kops.tttp_values(ones, cols),
+               kref.tttp_ref(ones.values, ones.indices, ones.valid, vec))
+    n_valid = int(ones.valid.sum())
+    b_ms, b_by = bound(nbytes(ones.values, ones.valid, ones.indices,
+                              *cols[1:]) + 4 * st.cap, n_valid * (nd - 1))
+    rows = [dict(
+        name="tttp_vector", route="cuda",
+        source="port/repro_torch/csrc/tttp.cu",
+        replaces="src/repro/kernels/tttp.py:61",
+        launches=counts["ccd_tttp"]["tttp"], max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.tttp_values(ones, cols), 20),
+        plain_ms=time_ms(torch, lambda: kref.tttp_ref(
+            ones.values, ones.indices, ones.valid, vec), 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"m={st.cap} nd={nd} R=1 (factor 0 missing) valid={n_valid}")]
+    del ones
+
+    # GCP, poisson_log, Adam, one step; SGD at sample rate 0.1, one sweep
+    res, counts["gcp"] = solver_run(
+        torch, f"gcp {GGN_LOSS} adam lr 1e-3",
+        solver_args("gcp", loss=GGN_LOSS, lr=1e-3, sweeps=1), ds,
+        init)
+    log(f"  gcp objective {res.objective[0]:.8g} -> {res.objective[1]:.8g}")
+    args = solver_args("sgd", sample_rate=0.1, sweeps=1)
+    res, counts["sgd"] = solver_run(torch, "sgd sample rate 0.1", args, ds,
+                                    init)
+    for name, n in (("gcp", counts["gcp"]), ("sgd", counts["sgd"])):
+        if n["tttp"] == 0 or n["mttkrp"] == 0:
+            raise SystemExit(f"phase 6: {name} did not launch TTTP and the "
+                             f"MTTKRP: {n}")
+    # what a new sample's bucket patterns cost, against the sweep
+    gen = torch.Generator(device=st.device).manual_seed(SEED + 1)
+    size = max(1024, int(0.1 * st.nnz))
+    sample = sgd.sample_entries(gen, st, size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pats = [bucket_pattern(sample, d, BLOCK_ROWS) for d in range(nd)]
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    sweep_ms = res.history[0][1] * 1e3
+    log(f"  sgd: {nd} bucket-pattern builds of a {size}-entry sample take "
+        f"{build_ms:.1f} ms, {build_ms / sweep_ms:.1%} of the "
+        f"{sweep_ms:.1f} ms sweep")
+    # the MTTKRP on a sample's bucket view, against its plain version
+    sample.attach_pattern(0, BLOCK_ROWS, pats[0])
+    bk = sample.row_buckets(0, BLOCK_ROWS)
+    others = [None] + list(init[1:])
+    err = held(torch, "mttkrp_bucketed on an SGD sample",
+               kops.mttkrp_bucketed(bk, others, num_rows=DIMS[0]),
+               kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                        others, 0, BLOCK_ROWS)[:DIMS[0]])
+    log(f"  mttkrp on the sample's bucket view (C={bk.capacity}) vs plain: "
+        f"max |err| {err:.2e}")
+    del sample, pats, bk
+
+    # one GGN iteration under the profiler
+    profile(torch, "phase 6: one GGN iteration (poisson_log, fused)",
+            lambda: gauss_newton.ggn_sweep(
+                st, ggn_state, losses.LOSSES[GGN_LOSS], 1e-5, cg_iters=CG_ITERS,
+                joint_iters=JOINT_ITERS, precond_iters=PRECOND_ITERS,
+                matvec_path="fused", block_rows=BLOCK_ROWS), top=12)
+    log(f"phase 6: passed; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return counts, rows
 
 
 def main():
@@ -619,6 +873,16 @@ def main():
     kernels = phase_timing(torch, run, launches, other_launches)
     for path in ("fused", "tttp_mttkrp"):
         phase_profile(torch, run, path)
+    solver_counts, solver_rows = phase_solvers(torch, run)
+    kernels += solver_rows
+    # phase 7: each kernel's launches in every run of phases 3 and 6, each
+    # counted from zero
+    paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
+             **solver_counts}
+    for row in kernels:
+        group = "tttp" if row["name"].startswith("tttp") else \
+            row["name"].replace("_bucketed", "")
+        row["path_launches"] = {p: n[group] for p, n in paths.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -11,7 +11,9 @@ run either as one fused pass over the Ω buckets (``matvec_path="fused"``,
 the fused CG-matvec kernel) or as the TTTP kernel followed by the bucketed
 MTTKRP kernel (``"tttp_mttkrp"``), both over Ω's cached bucket view. Both
 take any rank: ``kernels.ops.cg_matvec_bucketed`` runs R above the fused
-kernel's width as TTTP then MTTKRP.
+kernel's width as TTTP then MTTKRP. ``h_slices > 1`` is the paper's
+H-sliced schedule (the reference's route when no ``matvec_path`` is given):
+both halves over Ω's bucket view, R cut into column slices of ⌈R/H⌉.
 
 CG runs a fixed ``max_iters`` iterations with no host synchronisation.
 The reference stops as soon as every row has converged; here converged rows
@@ -23,12 +25,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.distributed import (LOCAL, AxisCtx, mttkrp_ctx,
-                                          rowdot_ctx)
+                                          no_planner_path, rowdot_ctx)
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops as kops
 
@@ -39,11 +41,17 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
                 mode: int, x: torch.Tensor, lam: float,
                 ctx: AxisCtx = LOCAL, h_slices: int = 1,
                 matvec_path: str = "fused",
-                block_rows: int = 8) -> torch.Tensor:
+                block_rows: int = 8,
+                mttkrp_path: Optional[str] = None) -> torch.Tensor:
     """(G_ω + λI) x via the implicit eq.-3 matvec. ``omega.values`` are the
-    per-entry weights ω_n (the Ω indicator for plain ALS)."""
-    if h_slices != 1:
-        raise NotImplementedError("H-sliced matvec is not ported yet")
+    per-entry weights ω_n: the Ω indicator for plain ALS, the loss
+    curvature for the Gauss-Newton solver (``completion.gauss_newton``)."""
+    no_planner_path(mttkrp_path)
+    if matvec_path not in MATVEC_PATHS:
+        raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
+    if h_slices > 1:
+        return _sliced_matvec(omega, factors, mode, x, lam, ctx, h_slices,
+                              block_rows)
     if matvec_path == "fused":
         buckets = omega.row_buckets(mode, block_rows)
         y = kops.cg_matvec_bucketed(buckets, factors, x,
@@ -62,7 +70,33 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
         y = kops.mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
                                  num_rows=omega.shape[mode])
         return ctx.psum_data(y) + lam * x
-    raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
+
+
+def _sliced_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
+                   mode: int, x: torch.Tensor, lam: float, ctx: AxisCtx,
+                   h_slices: int, block_rows: int) -> torch.Tensor:
+    """The reference's H-sliced schedule (``rs = ⌈R/H⌉``, so the last slice
+    may be narrower): the TTTP halves of the column slices summed into z,
+    then one MTTKRP per column slice, joined. Both halves run over Ω's
+    cached bucket view, z in bucket order, so nothing is gathered per
+    call."""
+    buckets = omega.row_buckets(mode, block_rows)
+    fs = list(factors)
+    fs[mode] = x
+    r = x.shape[1]
+    rs = -(-r // h_slices)
+    slices = [[None if f is None else f[:, c0:c0 + rs].contiguous()
+               for f in fs] for c0 in range(0, r, rs)]
+    z = None
+    for sl in slices:
+        part = kops.tttp_bucket_values(buckets, sl)
+        z = part if z is None else z + part
+    zb = dataclasses.replace(buckets, values=ctx.psum_model(z))
+    cols = []
+    for sl in slices:
+        sl[mode] = None
+        cols.append(kops.mttkrp_bucketed(zb, sl, num_rows=omega.shape[mode]))
+    return ctx.psum_data(torch.cat(cols, dim=1)) + lam * x
 
 
 def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,

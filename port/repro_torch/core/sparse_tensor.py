@@ -36,6 +36,9 @@ class SparseTensor:
     # RowBlockBuckets): this instance's gathered bucket views
     _bucket_cache: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False)
+    # (valid, valid._version, positions of the valid entries)
+    _valid_positions: Optional[tuple] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     # -- basic properties ---------------------------------------------------
     @property
@@ -57,6 +60,18 @@ class SparseTensor:
 
     def masked_values(self) -> torch.Tensor:
         return torch.where(self.valid, self.values, 0)
+
+    def valid_positions(self) -> torch.Tensor:
+        """(count,) int64 slots of the valid entries, in slot order. Found
+        once per ``valid`` tensor (``torch.nonzero`` waits for the device)
+        and kept while ``valid`` is the same tensor at the same version."""
+        hit = self._valid_positions
+        if (hit is not None and hit[0] is self.valid
+                and hit[1] == self.valid._version):
+            return hit[2]
+        pos = torch.nonzero(self.valid).squeeze(1)
+        self._valid_positions = (self.valid, self.valid._version, pos)
+        return pos
 
     # -- constructors ---------------------------------------------------------
     @classmethod

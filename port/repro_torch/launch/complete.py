@@ -1,64 +1,93 @@
-"""Tensor-completion CLI, implicit-CG ALS (paper §2.2) on one device:
+"""Tensor-completion CLI on one device:
 
     python -m repro_torch.launch.complete --algorithm als --dataset function \\
         --dims 200,180,160 --nnz 200000 --rank 10 --sweeps 10 \\
-        [--matvec-path fused|tttp_mttkrp] [--device cuda|cpu]
+        [--loss quadratic] [--matvec-path fused|tttp_mttkrp] \\
+        [--device cuda|cpu]
 
-On ``cuda`` every sweep runs the three hand-written kernels: the bucketed
-MTTKRP for each right-hand side, the fused CG matvec (or TTTP + bucketed
-MTTKRP with ``--matvec-path tttp_mttkrp``) in the CG loop, and TTTP for the
-RMSE. ``--init-npz`` loads the tensor (``indices``, ``values``, ``valid``,
+Algorithms, as in the reference: ``als`` (implicit-CG ALS, quadratic
+loss), ``ccd``/``ccd_tttp`` (CCD++, gather/segment-sum or TTTP-routed),
+``sgd`` (sampled gradient, ``--lr``, ``--sample-rate``), ``gcp`` (first-order
+generalized loss, Adam, ``--lr``) and ``ggn`` (damped generalized
+Gauss-Newton on the eq.-3 Gram matvec with curvature weights,
+``--damping``). ``--loss`` picks one of ``core.losses.LOSSES`` for ``gcp``
+and ``ggn``; the other algorithms fit the quadratic loss whatever it says.
+On ``cuda`` the sweeps run the three hand-written kernels: TTTP for model
+values and the RMSE, the bucketed MTTKRP for right-hand sides and
+gradients, and the fused CG matvec (or TTTP + bucketed MTTKRP with
+``--matvec-path tttp_mttkrp``) in the CG loops of ``als`` and ``ggn``.
+``--init-npz`` loads the tensor (``indices``, ``values``, ``valid``,
 ``shape``) and the initial ``factor_<d>`` from a file, so a run can start
 from the JAX package's arrays; ``--dump-factors x.npz`` writes the final
 ``factor_<d>``. Each sweep prints ``sweep i  <ms> ms  rmse=<rmse>``, its time
-fenced by ``torch.cuda.synchronize()``.
+fenced by ``torch.cuda.synchronize()``, and for ``gcp`` and ``ggn`` the
+objective they lower on the same line (``ggn`` also its damping).
 
-The other algorithms, the Netflix-shaped dataset, checkpointing and
-``--mesh`` are refused with a message: they are later slices of the port.
+The Netflix-shaped dataset, checkpointing, ``--mesh`` and the planner's
+matvec paths (``auto``, ``sliced``, ``dense``) are refused with a message:
+they are later slices of the port.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import interop
+from repro_torch.core import losses as LOSS
 from repro_torch.core.completion.als import MATVEC_PATHS, als_sweep
+from repro_torch.core.completion.ccd import (ccd_sweep, ccd_sweep_tttp,
+                                             residual_values)
+from repro_torch.core.completion.gauss_newton import (GGNState, ggn_init,
+                                                      ggn_sweep)
+from repro_torch.core.completion.gcp import gcp_adam_init, gcp_loss, gcp_step
+from repro_torch.core.completion.sgd import sgd_sweep
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import CompletionDataset
+from repro_torch.kernels import ops as kops
+
+ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
+# the reference's planner candidates for the Gram matvec, not ported yet
+PLANNER_MATVEC_PATHS = ("auto", "sliced", "dense")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.complete",
-        description="implicit-CG ALS tensor completion on one device")
+        description="tensor completion on one device")
     ap.add_argument("--dataset", default="function",
                     choices=["function", "netflix"])
-    ap.add_argument("--algorithm", default="als",
-                    choices=["als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn"])
+    ap.add_argument("--algorithm", default="als", choices=ALGORITHMS)
+    ap.add_argument("--loss", default="quadratic")
     ap.add_argument("--dims", default="200,180,160")
     ap.add_argument("--nnz", type=int, default=200_000)
     ap.add_argument("--rank", type=int, default=10)
     ap.add_argument("--lam", type=float, default=1e-5)
     ap.add_argument("--sweeps", type=int, default=10)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--sample-rate", type=float, default=0.1)
     ap.add_argument("--cg-iters", type=int, default=20)
     ap.add_argument("--cg-tol", type=float, default=1e-4,
-                    help="batched-CG relative residual tolerance")
+                    help="batched-CG relative residual tolerance (als/ggn)")
+    ap.add_argument("--damping", type=float, default=1e-5,
+                    help="initial Levenberg-Marquardt damping (ggn)")
     ap.add_argument("--block-rows", type=int, default=8,
                     help="CCSR bucket granularity (output rows per CTA)")
-    ap.add_argument("--matvec-path", default="fused", choices=MATVEC_PATHS,
-                    help="CG Gram matvec: one fused kernel, or TTTP then "
-                         "bucketed MTTKRP")
+    ap.add_argument("--matvec-path", default="fused",
+                    choices=MATVEC_PATHS + PLANNER_MATVEC_PATHS,
+                    help="Gram matvec of als and ggn: one fused kernel, or "
+                         "TTTP then bucketed MTTKRP (auto, sliced and dense "
+                         "are planner candidates, not ported yet)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the torch.Generator behind data and "
-                         "initial factors")
+                    help="seed of the torch.Generators behind data, initial "
+                         "factors and SGD samples")
     ap.add_argument("--init-npz", default=None, metavar="PATH",
                     help="load the tensor (indices, values, valid, shape) "
                          "and initial factor_<d> from PATH")
@@ -70,10 +99,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_supported(args) -> None:
-    """Refuse what this slice of the port does not run yet."""
-    if args.algorithm != "als":
-        raise SystemExit(f"--algorithm {args.algorithm}: only 'als' is "
-                         f"ported so far")
+    """Refuse what the port does not run yet, and unknown losses."""
+    if args.loss not in LOSS.LOSSES:
+        raise SystemExit(f"unknown --loss {args.loss}; "
+                         f"choices: {sorted(LOSS.LOSSES)}")
+    if args.matvec_path in PLANNER_MATVEC_PATHS:
+        raise SystemExit(f"--matvec-path {args.matvec_path}: a planner "
+                         f"candidate; the planner is not ported yet (use "
+                         f"{' or '.join(MATVEC_PATHS)})")
     if args.dataset != "function" and args.init_npz is None:
         raise SystemExit(f"--dataset {args.dataset}: only 'function' is "
                          f"ported so far")
@@ -88,16 +121,21 @@ def check_supported(args) -> None:
 
 
 @dataclasses.dataclass
-class ALSRun:
+class Run:
     """What a run leaves behind: the ingested dataset, the initial and final
     factors, the RMSE before the first sweep, ``(sweep, seconds, rmse)`` per
-    sweep and the factors after each sweep."""
+    sweep, the factors after each sweep and each sweep's kernel launches.
+    For ``gcp`` and ``ggn`` also the objective, before the first sweep and
+    after each, and for ``ggn`` the damping after each sweep."""
     dataset: CompletionDataset
     init_factors: List[torch.Tensor]
     factors: List[torch.Tensor]
     rmse0: float
     history: List[Tuple[int, float, float]]
     sweep_factors: List[List[torch.Tensor]]
+    sweep_launches: List[Dict[str, int]]
+    objective: List[float]
+    damping: List[float]
 
 
 def _sync(device: torch.device) -> None:
@@ -135,35 +173,92 @@ def load_problem(args) -> Tuple[CompletionDataset, List[torch.Tensor]]:
     return ds, factors
 
 
-def run_als(args, ds: CompletionDataset,
-            factors: Sequence[torch.Tensor]) -> ALSRun:
-    st, omega = ds.tensor, ds.omega
+def make_step(args, ds: CompletionDataset, factors: Sequence[torch.Tensor]
+              ) -> Tuple[object, Callable, Callable]:
+    """``(state0, step, get_factors)`` of ``args.algorithm``:
+    ``step(state)`` runs one sweep and ``get_factors(state)`` reads the
+    factors out of a state."""
+    st, omega, br = ds.tensor, ds.omega, ds.block_rows
+    loss = LOSS.LOSSES[args.loss]
+    a = args.algorithm
+    if a == "als":
+        return (list(factors),
+                lambda fs: als_sweep(st, omega, fs, args.lam,
+                                     cg_tol=args.cg_tol,
+                                     cg_iters=args.cg_iters,
+                                     matvec_path=args.matvec_path,
+                                     block_rows=br),
+                list)
+    if a in ("ccd", "ccd_tttp"):
+        sweep = ccd_sweep if a == "ccd" else ccd_sweep_tttp
+        return ((list(factors), residual_values(st, factors)),
+                lambda s: sweep(st, s[0], s[1], args.lam),
+                lambda s: s[0])
+    if a == "sgd":
+        gen = torch.Generator(device=st.device).manual_seed(args.seed)
+        sample = max(1024, int(args.sample_rate * st.nnz))
+        return (list(factors),
+                lambda fs: sgd_sweep(gen, st, fs, args.lam, args.lr, sample,
+                                     block_rows=br),
+                list)
+    if a == "gcp":
+        return ((list(factors), gcp_adam_init(factors)),
+                lambda s: gcp_step(st, s[0], loss, args.lam, args.lr, s[1],
+                                   block_rows=br),
+                lambda s: s[0])
+    return (ggn_init(factors, damping=args.damping),
+            lambda s: ggn_sweep(st, s, loss, args.lam, cg_tol=args.cg_tol,
+                                cg_iters=args.cg_iters,
+                                matvec_path=args.matvec_path, block_rows=br),
+            lambda s: list(s.factors))
+
+
+def run_solver(args, ds: CompletionDataset,
+               factors: Sequence[torch.Tensor]) -> Run:
+    """``args.sweeps`` sweeps of ``args.algorithm`` from ``factors``."""
+    st = ds.tensor
     device = st.device
-    fs = list(factors)
-    e0 = rmse(st, fs)
-    print(f"sweep   -  initial      rmse={e0:.6f}")
-    hist, per_sweep = [], []
+    loss = LOSS.LOSSES[args.loss]
+    with_objective = args.algorithm in ("gcp", "ggn")
+    state, step, get_factors = make_step(args, ds, factors)
+    e0 = rmse(st, factors)
+    objective = []
+    line = f"sweep   -  initial      rmse={e0:.6f}"
+    if with_objective:
+        objective.append(float(gcp_loss(st, factors, loss, args.lam)))
+        line += f"  objective={objective[0]:.6g}"
+    print(line)
+    hist, per_sweep, launches, damping = [], [], [], []
     for i in range(args.sweeps):
         _sync(device)
+        before = kops.launch_counts()
         t0 = time.perf_counter()
-        fs = als_sweep(st, omega, fs, args.lam, cg_tol=args.cg_tol,
-                       cg_iters=args.cg_iters,
-                       matvec_path=args.matvec_path,
-                       block_rows=ds.block_rows)
+        state = step(state)
         _sync(device)
         dt = time.perf_counter() - t0
+        after = kops.launch_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        fs = get_factors(state)
         e = rmse(st, fs)
         hist.append((i, dt, e))
         per_sweep.append(fs)
-        print(f"sweep {i:3d}  {dt * 1e3:8.1f} ms  rmse={e:.6f}")
+        line = f"sweep {i:3d}  {dt * 1e3:8.1f} ms  rmse={e:.6f}"
+        if with_objective:
+            objective.append(float(gcp_loss(st, fs, loss, args.lam)))
+            line += f"  objective={objective[-1]:.6g}"
+        if isinstance(state, GGNState):
+            damping.append(float(state.damping))
+            line += f"  damping={damping[-1]:.3g}"
+        print(line)
     if hist:
         print(f"final rmse={hist[-1][2]:.6f} "
               f"(mean sweep {sum(h[1] for h in hist) / len(hist) * 1e3:.1f}"
               f" ms)")
-    return ALSRun(ds, list(factors), fs, e0, hist, per_sweep)
+    return Run(ds, list(factors), get_factors(state), e0, hist, per_sweep,
+               launches, objective, damping)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> ALSRun:
+def main(argv: Optional[Sequence[str]] = None) -> Run:
     args = build_parser().parse_args(argv)
     check_supported(args)
     t0 = time.perf_counter()
@@ -171,10 +266,11 @@ def main(argv: Optional[Sequence[str]] = None) -> ALSRun:
     _sync(ds.tensor.device)
     st = ds.tensor
     print(f"dataset={args.dataset} shape={st.shape} nnz={st.nnz} "
-          f"rank={factors[0].shape[1]} algorithm=als "
-          f"matvec_path={args.matvec_path} block_rows={ds.block_rows} "
+          f"rank={factors[0].shape[1]} algorithm={args.algorithm} "
+          f"loss={args.loss} matvec_path={args.matvec_path} "
+          f"block_rows={ds.block_rows} "
           f"device={st.device} ingest={time.perf_counter() - t0:.2f} s")
-    run = run_als(args, ds, factors)
+    run = run_solver(args, ds, factors)
     if args.dump_factors:
         np.savez(args.dump_factors,
                  **{f"factor_{d}": f.cpu().numpy()

@@ -21,7 +21,10 @@ PORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "port")
 sys.path.insert(0, PORT)
 
 from repro_torch import interop
+from repro_torch.core import losses
 from repro_torch.core.completion import als
+from repro_torch.core.completion import ccd
+from repro_torch.core.completion import gauss_newton as ggn
 from repro_torch.kernels import cg_matvec as kcg
 from repro_torch.kernels import mttkrp as kmttkrp
 from repro_torch.kernels import ops as kops
@@ -244,3 +247,75 @@ def test_als_sweep_on_card_matches_plain_path(dev, path, r):
         assert off <= 3 * floor + 1e-4 * float(w64.abs().max()), (
             f"factor {d}: card {off:.3e} from the float64 sweep, plain "
             f"float32 {floor:.3e}")
+
+
+def _on_cpu(st, fs, dtype):
+    """The card's tensor and factors as CPU copies in ``dtype``."""
+    cpu = interop.sparse_from_numpy(
+        st.indices.cpu().numpy(), st.values.cpu().to(dtype).numpy(),
+        st.valid.cpu().numpy(), st.shape, "cpu")
+    return cpu, [f.cpu().to(dtype) for f in fs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["fused", "tttp_mttkrp"])
+def test_ggn_sweep_on_card_matches_plain_path(dev, path):
+    """Two GGN iterations (poisson_log) on the card against the plain path
+    on the CPU: the damping after each equal to the float64 plain run's,
+    and the factors within 1e-4 of the float32 plain run, or, where float32
+    rounding carried through the joint solve moves the plain float32 run
+    itself further from the float64 run, no further from the float64 run
+    than three times the plain float32 run is (the two packages' GGN runs
+    agree to 2e-10 in float64 and lie 3e-4 apart in float32 after two
+    iterations on the CPU). All three kernels launch on the fused route;
+    TTTP and the MTTKRP on the other."""
+    st, fs = _problem(dev, 3, (40, 30, 20), 4000, 6)
+    it = dict(cg_iters=10, joint_iters=6, precond_iters=4,
+              matvec_path=path)
+
+    def run(t, factors):
+        state, out = ggn.ggn_init(factors), []
+        for _ in range(2):
+            state = ggn.ggn_sweep(t, state, losses.poisson_log, 1e-5, **it)
+            out.append(state)
+        return out
+
+    kops.reset_launch_counts()
+    got = run(st, fs)
+    torch.cuda.synchronize()
+    n = kops.launch_counts()
+    assert n["tttp"] > 0 and n["mttkrp"] > 0
+    assert (n["cg_matvec"] > 0) == (path == "fused")
+    want32 = run(*_on_cpu(st, fs, torch.float32))
+    want64 = run(*_on_cpu(st, fs, torch.float64))
+    for i, (g, w, w64) in enumerate(zip(got, want32, want64)):
+        assert float(g.damping) == pytest.approx(float(w64.damping),
+                                                 rel=1e-6), i
+        for d, (gf, wf, wf64) in enumerate(zip(g.factors, w.factors,
+                                               w64.factors)):
+            gf = gf.cpu()
+            if torch.allclose(gf, wf, **TOL):
+                continue
+            floor = float((wf.double() - wf64).abs().max())
+            off = float((gf.double() - wf64).abs().max())
+            assert off <= 3 * floor, (
+                f"iteration {i} factor {d}: card {off:.3e} from the float64 "
+                f"run, plain float32 {floor:.3e}")
+
+
+@pytest.mark.cuda
+def test_ccd_sweep_tttp_on_card_matches_plain_path(dev):
+    """One CCD++ sweep through the TTTP kernel on vector factors: 2 TTTP
+    launches per column update (2·N·R), and the factors and residual of the
+    plain path on the CPU at rtol = atol = 1e-4."""
+    st, fs = _problem(dev, 4, (40, 30, 20), 4000, 5)
+    rho = ccd.residual_values(st, fs)
+    kops.reset_launch_counts()
+    got, got_rho = ccd.ccd_sweep_tttp(st, fs, rho, 0.1)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["tttp"] == 2 * 3 * 5
+    cpu, cfs = _on_cpu(st, fs, torch.float32)
+    want, want_rho = ccd.ccd_sweep_tttp(cpu, cfs, rho.cpu(), 0.1)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.cpu(), w, **TOL)
+    torch.testing.assert_close(got_rho.cpu(), want_rho, **TOL)
