@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-seven phases and stops with a non-zero exit at the first failure:
+eight phases and stops with a non-zero exit at the first failure:
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each kernel's registers and spills;
@@ -68,8 +68,41 @@ seven phases and stops with a non-zero exit at the first failure:
    finite, each launching TTTP and the MTTKRP, with the share of the SGD
    sweep that the sample's bucket patterns take, and the MTTKRP held on a
    sample's bucket view; then one GGN iteration under torch.profiler;
-7. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3 and 6 under
+7. free phase 3's dataset, then drive the streamed path:
+   a. stream the function tensor (80 M entries at dims 20000^3, chunks of
+      2^22, 10 % held out) through ``CompletionDataset.from_stream`` onto
+      the card; print the ingest's wall and busy seconds, Mnnz/s and peak
+      RSS, the entries read, duplicates dropped and train/test nnz, and per
+      mode the capacity from the streamed counts, the true maximum
+      occupancy and the slots per nonzero; fail unless every capacity holds
+      its fullest bucket, train + test + duplicates = entries read, and the
+      train and test coordinates are disjoint; hold TTTP, the MTTKRP and
+      the fused matvec on the streamed (sorted) mode-0 layout against their
+      plain versions;
+   b. ``launch.experiment.run_on_dataset`` (``run_experiment`` on a dataset
+      already ingested) on that dataset: rank 10, 3 sweeps, (als, ccd, sgd,
+      ggn) x (quadratic, poisson_log); fail unless every objective and
+      held-out metric is finite, the objectives of als, ccd and ggn never
+      rise by more than 1e-5 of their first value, every run launched TTTP,
+      every run but ccd (which reduces with ``index_add_``, as the
+      reference's with a segment sum) the MTTKRP, als and ggn the fused
+      matvec, and the report JSON reads back with the reference's keys;
+   c. ALS on that dataset through ``RestartableLoop`` (6 sweeps, a
+      checkpoint every 5) with a failure injected after sweep 5: exactly
+      that RuntimeError, then a new loop resumes from the checkpoint of
+      sweep 4, runs one sweep (its launch counts show it) and matches an
+      uninterrupted run at rtol 1e-4, atol 1e-5 of the largest entry;
+   d. the reference's ``netflix-small`` spec through ``run_experiment`` on
+      the card (the checks of b), then the MTTKRP and the fused matvec on
+      its Zipf-skewed mode-0 buckets against their plain versions, the
+      slots per nonzero of each mode, and the fused matvec timed beside its
+      bound;
+   e. ``launch.complete --dump-factors DIR`` (ALS at dims 2000,1500,1000),
+      restored by the port's checkpointer onto the card from the metadata
+      it wrote;
+   then print the peak device memory of phase 7;
+8. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3, 6 and 7 under
    ``path_launches``), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -401,24 +434,24 @@ def phase_main_path(torch):
 # phase 4
 # ---------------------------------------------------------------------------
 
-def held(torch, name, got, want):
+def held(torch, name, got, want, where="phase 4"):
     """Hold a kernel's result at the main path's shapes against its plain
     version: finite, same shape, and within rtol 1e-4 plus an atol of 1e-5
     of the largest plain entry (a bucket row sums thousands of order-1
     terms in an order the shared-memory atomics change). Raises SystemExit
     when it fails; returns max |kernel - plain|."""
     if got.shape != want.shape:
-        raise SystemExit(f"phase 4: {name} gave shape {tuple(got.shape)}, its "
+        raise SystemExit(f"{where}: {name} gave shape {tuple(got.shape)}, its "
                          f"plain version {tuple(want.shape)}")
     if not bool(torch.isfinite(got).all()):
-        raise SystemExit(f"phase 4: {name} gave non-finite values")
+        raise SystemExit(f"{where}: {name} gave non-finite values")
     scale = float(want.abs().max())
     err = (got - want).abs()
     bad = err > MAIN_RTOL * want.abs() + MAIN_ATOL_OF_MAX * scale
     if bool(bad.any()):
         raise SystemExit(
-            f"phase 4: {name} disagrees with its plain version at the main "
-            f"path's shapes: {int(bad.sum())} of {bad.numel()} entries off, "
+            f"{where}: {name} disagrees with its plain version: "
+            f"{int(bad.sum())} of {bad.numel()} entries off, "
             f"max |kernel - plain| = {float(err.max()):.3e}, max |plain| = "
             f"{scale:.3e} (rtol {MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max "
             f"|plain|)")
@@ -855,6 +888,378 @@ def phase_solvers(torch, run):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 7
+# ---------------------------------------------------------------------------
+
+# 7a/7b: the function stream at the main path's size, 10 % held out
+STREAM_CHUNK = 1 << 22
+TEST_FRACTION = 0.1
+EXP_SWEEPS = 3
+# the JAX package's experiment report keys (src/repro/launch/experiment.py)
+REPORT_KEYS = {"spec", "ingest", "runs"}
+INGEST_KEYS = {"seconds", "nnz", "test_nnz", "chunks", "entries_read",
+               "duplicates_dropped", "nnz_rows", "shard_nnz", "busy_seconds",
+               "mnnz_per_s", "spills", "peak_rss_mb"}
+RUN_KEYS = {"algorithm", "loss", "update_loss", "link", "rank",
+            "total_seconds", "sweeps", "final"}
+SWEEP_KEYS = {"sweep", "seconds", "objective", "rmse_train", "rmse_test",
+              "poisson_deviance_test"}
+# the reference CLI's --dump-factors DIR metadata (src/repro/launch/complete.py)
+DUMP_KEYS = {"kind", "rank", "shape", "algorithm", "loss", "link", "dataset",
+             "nnz", "sweeps"}
+
+
+def phase_stream(torch):
+    """7a: the function tensor streamed through ``from_stream`` onto the
+    card. Returns the dataset and the ingest's wall seconds."""
+    import numpy as np
+    from repro_torch.data import streaming
+    from repro_torch.data.pipeline import CompletionDataset
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.sparse.ccsr import bucket_capacity
+    log(f"phase 7a: streamed ingest of the function tensor, nnz={NNZ} at "
+        f"dims {DIMS}, chunks of {STREAM_CHUNK}, {TEST_FRACTION:.0%} held "
+        f"out, block_rows {BLOCK_ROWS}")
+    t0 = time.perf_counter()
+    ds = CompletionDataset.from_stream(
+        streaming.make_stream("function", SEED, DIMS, NNZ, STREAM_CHUNK),
+        DIMS, test_fraction=TEST_FRACTION, block_rows=BLOCK_ROWS,
+        device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st, te, stats = ds.tensor, ds.test, ds.stats
+    if st.device.type != "cuda" or te.device.type != "cuda":
+        raise SystemExit(f"phase 7a: dataset not on the card: {st.device}, "
+                         f"{te.device}")
+    tstats = stats.test_stats
+    read = stats.entries_read + tstats.entries_read
+    dups = stats.duplicates_dropped + tstats.duplicates_dropped
+    busy = stats.ingest_seconds + tstats.ingest_seconds
+    log(f"  ingest wall {wall:.1f} s, busy {busy:.1f} s (train "
+        f"{stats.ingest_seconds:.1f}, test {tstats.ingest_seconds:.1f}), "
+        f"{read / busy / 1e6:.2f} Mnnz/s over busy time, "
+        f"{read / wall / 1e6:.2f} over wall, peak RSS "
+        f"{max(stats.peak_rss_mb, tstats.peak_rss_mb):.0f} MB")
+    log(f"  entries read {read} ({stats.chunks} chunks), duplicates dropped "
+        f"{dups} (train {stats.duplicates_dropped}, test "
+        f"{tstats.duplicates_dropped}), train nnz {st.nnz}, test nnz "
+        f"{te.nnz}")
+    if read != NNZ or st.nnz + te.nnz + dups != read:
+        raise SystemExit(f"phase 7a: train {st.nnz} + test {te.nnz} + "
+                         f"duplicates {dups} != entries read {read} "
+                         f"(stream of {NNZ})")
+    for mode in range(st.ndim):
+        pat = st._pattern_cache[(mode, BLOCK_ROWS)]
+        nb, cap = pat.sel.shape
+        most = int(pat.valid.sum(1).max())
+        streamed = bucket_capacity(stats.bucket_counts[mode])
+        log(f"  mode {mode}: capacity {cap} (streamed counts give "
+            f"{streamed}), true max occupancy {most}, {nb} buckets, "
+            f"{nb * cap / st.nnz:.3f} slots per nonzero")
+        if cap != streamed or cap < most:
+            raise SystemExit(f"phase 7a: mode {mode} capacity {cap} (streamed "
+                             f"{streamed}) below its true max {most}")
+    lin = []
+    for t in (st, te):
+        idx = t.indices[t.valid].cpu().numpy().astype(np.int64)
+        lin.append((idx[:, 0] * DIMS[1] + idx[:, 1]) * DIMS[2] + idx[:, 2])
+    both = np.intersect1d(lin[0], lin[1], assume_unique=True)
+    if both.size:
+        raise SystemExit(f"phase 7a: {both.size} coordinates in both the "
+                         f"train and the test tensor")
+    log("  train and test coordinate sets disjoint (np.intersect1d)")
+    del lin, both
+    # the kernels on the streamed layout: mode 0's sel is monotone
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fs = [torch.randn(d, RANK, generator=gen, device="cuda") / RANK ** 0.5
+          for d in DIMS]
+    ones = st.with_values(torch.ones_like(st.values))
+    err_t = held(torch, "tttp on the streamed tensor",
+                 kops.tttp_values(ones, fs),
+                 kref.tttp_ref(ones.values, ones.indices, ones.valid, fs),
+                 "phase 7a")
+    bo = ds.omega.row_buckets(0, BLOCK_ROWS)
+    bk = st.row_buckets(0, BLOCK_ROWS)
+    others = [None] + fs[1:]
+    err_m = held(torch, "mttkrp_bucketed on the streamed tensor",
+                 kops.mttkrp_bucketed(bk, others),
+                 kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                          others, 0, BLOCK_ROWS)[:DIMS[0]],
+                 "phase 7a")
+    err_c = held(torch, "cg_matvec_bucketed on the streamed tensor",
+                 kops.cg_matvec_bucketed(bo, fs, fs[0]),
+                 kref.cg_matvec_bucketed_ref(bo.values, bo.indices,
+                                             bo.local_row, fs, fs[0], 0,
+                                             BLOCK_ROWS)[:DIMS[0]],
+                 "phase 7a")
+    log(f"  kernels vs plain on the streamed mode-0 layout: max |err| tttp "
+        f"{err_t:.2e}, mttkrp {err_m:.2e}, cg_matvec {err_c:.2e}")
+    return ds, wall
+
+
+def check_report(torch, label, report, path, diverges=()):
+    """The report written to ``path`` reads back with the reference's keys;
+    every objective and held-out metric is finite but those of the
+    algorithms in ``diverges``; the objectives of als, ccd and ggn never
+    rise by more than 1e-5 of their first value; every
+    run launched TTTP, every run but ccd (its einsum variant reduces with
+    ``index_add_``, as the reference's with a segment sum) the MTTKRP, and
+    als and ggn the fused matvec. Returns each run's launches."""
+    with open(path) as f:
+        back = json.load(f)
+    if back != json.loads(json.dumps(report)):
+        raise SystemExit(f"{label}: {path} does not read back as the report")
+    if not REPORT_KEYS <= set(back) or set(back["ingest"]) != INGEST_KEYS:
+        raise SystemExit(f"{label}: report keys {sorted(back)} / "
+                         f"{sorted(back['ingest'])}")
+    launches = {}
+    for run in back["runs"]:
+        name = f"{run['algorithm']}/{run['loss']}"
+        if not RUN_KEYS <= set(run) or \
+                any(set(e) != SWEEP_KEYS for e in run["sweeps"]):
+            raise SystemExit(f"{label}: {name} keys {sorted(run)}")
+        obj = [e["objective"] for e in run["sweeps"]]
+        finite = [e[k] for e in run["sweeps"]
+                  for k in ("objective", "rmse_test", "poisson_deviance_test")]
+        if run["algorithm"] not in diverges and \
+                not all(math.isfinite(v) for v in finite):
+            raise SystemExit(f"{label}: {name} metrics not finite: "
+                             f"{run['sweeps']}")
+        if run["algorithm"] in ("als", "ccd", "ggn") and any(
+                b - a > 1e-5 * abs(obj[0]) for a, b in zip(obj, obj[1:])):
+            raise SystemExit(f"{label}: {name} objective rose: {obj}")
+        n = run["launches"]
+        need = ["tttp"] + (["mttkrp"] if run["algorithm"] != "ccd" else []) \
+            + (["cg_matvec"] if run["algorithm"] in ("als", "ggn") else [])
+        if any(n[k] == 0 for k in need):
+            raise SystemExit(f"{label}: {name} did not launch {need}: {n}")
+        fin = run["final"]
+        ms = sum(e["seconds"] for e in run["sweeps"]) / len(run["sweeps"])
+        log(f"  {name}: mean sweep {ms * 1e3:.1f} ms, objective "
+            f"{obj[0]:.7g} -> {obj[-1]:.7g}, final rmse_test "
+            f"{fin['rmse_test']:.6f}, poisson_deviance_test "
+            f"{fin['poisson_deviance_test']:.6f}, launches {n}")
+        launches[name] = n
+    return launches
+
+
+def phase_experiment(torch, ds, ingest_seconds, tmp):
+    """7b: the experiment harness at full width on 7a's dataset."""
+    from repro_torch.launch import experiment
+    spec = experiment.ExperimentSpec(
+        "chip-function", "function", DIMS, NNZ, STREAM_CHUNK, rank=RANK,
+        sweeps=EXP_SWEEPS, test_fraction=TEST_FRACTION, seed=SEED,
+        note="chip_smoke.py phase 7: the main path's tensor, streamed")
+    log(f"phase 7b: run_on_dataset on 7a's dataset: {spec.algorithms} x "
+        f"{spec.losses}, rank {RANK}, {EXP_SWEEPS} sweeps, lam {spec.lam}")
+    out = os.path.join(tmp, "experiments")
+    report = experiment.run_on_dataset(spec, ds, ingest_seconds, out_dir=out,
+                                       ckpt_root=os.path.join(tmp, "ckpt"))
+    torch.cuda.synchronize()
+    launches = check_report(torch, "phase 7b", report, os.path.join(
+        out, f"experiment_{spec.name}.json"))
+    if len(launches) != len(spec.algorithms) * len(spec.losses):
+        raise SystemExit(f"phase 7b: runs {sorted(launches)}")
+    return spec, {f"exp {k}": v for k, v in launches.items()}
+
+
+def phase_restart(torch, ds, spec, tmp):
+    """7c: ALS through RestartableLoop, killed after sweep 5, resumed from
+    the checkpoint of sweep 4, against an uninterrupted run."""
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import experiment
+    from repro_torch.runtime import RestartableLoop
+    sweeps, every, fail_at = 6, 5, 5
+    fs = experiment.initial_factors(spec, "als", "quadratic", "cuda")
+    state0, step, get, _, _ = experiment.make_solver(
+        "als", "quadratic", ds.tensor, ds.omega, fs, spec, ds.block_rows)
+    log(f"phase 7c: ALS on 7a's dataset through RestartableLoop, {sweeps} "
+        f"sweeps, ckpt_every {every}, failure injected after sweep {fail_at}")
+    whole = RestartableLoop(os.path.join(tmp, "whole"), step,
+                            ckpt_every=every).run(state0, sweeps)
+    cut = os.path.join(tmp, "cut")
+    raised = None
+    try:
+        RestartableLoop(cut, step, ckpt_every=every).run(state0, sweeps,
+                                                         fail_at=fail_at)
+    except RuntimeError as e:
+        if str(e) != f"injected failure at step {fail_at}":
+            raise
+        raised = e
+    if raised is None:
+        raise SystemExit("phase 7c: the injected failure was not raised")
+    if latest_step(cut) != every - 1:
+        raise SystemExit(f"phase 7c: newest checkpoint {latest_step(cut)}, "
+                         f"expected {every - 1}")
+    ran = []
+
+    def counted(i, state):
+        ran.append(i)
+        return step(i, state)
+
+    kops.reset_launch_counts()
+    got = RestartableLoop(cut, counted, ckpt_every=every).run(state0, sweeps)
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    want = {"tttp": 0, "mttkrp": len(DIMS),
+            "cg_matvec": len(DIMS) * (1 + spec.cg_iters)}
+    log(f"  raised {raised!r}; resumed from step {every - 1}, ran sweeps "
+        f"{ran}, launches {launches} (one sweep: {want})")
+    if ran != [every] or launches != want:
+        raise SystemExit(f"phase 7c: the resumed loop ran {ran} with "
+                         f"launches {launches}, expected [{every}] and {want}")
+    for d, (a, b) in enumerate(zip(get(got), get(whole))):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(
+            a, b, rtol=1e-4, atol=1e-5 * scale,
+            msg=lambda m: f"phase 7c: factor {d}, resumed vs whole: {m}")
+        log(f"  factor {d}: max |resumed - whole| "
+            f"{float((a - b).abs().max()):.3e} (max |whole| {scale:.3e})")
+    return {"restart resume": launches}
+
+
+def phase_skewed(torch, tmp):
+    """7d: the reference's netflix-small spec through run_experiment on the
+    card, then the fused matvec and the MTTKRP on its skewed mode-0 buckets
+    against their plain versions, and the fused matvec timed."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import experiment
+    spec = experiment.SPECS["netflix-small"]
+    log(f"phase 7d: run_experiment('{spec.name}') on cuda: shape "
+        f"{spec.shape}, {spec.nnz} entries, rank {spec.rank}, {spec.sweeps} "
+        f"sweeps, {spec.algorithms} x {spec.losses}")
+    out = os.path.join(tmp, "netflix")
+    report = experiment.run_experiment(spec, out_dir=out,
+                                       ckpt_root=os.path.join(out, "ckpt"),
+                                       device="cuda")
+    torch.cuda.synchronize()
+    # SGD at the spec's lr 1e-3 overflows on these ratings by its fifth
+    # sweep in the JAX package too (counts of 1..5 summed over popular rows)
+    launches = check_report(torch, "phase 7d", report, os.path.join(
+        out, f"experiment_{spec.name}.json"), diverges=("sgd",))
+    ds, _ = experiment.ingest_spec(spec, device="cuda")
+    st = ds.tensor
+    for mode in range(st.ndim):
+        pat = st._pattern_cache[(mode, ds.block_rows)]
+        nb, cap = pat.sel.shape
+        occ = pat.valid.sum(1)
+        log(f"  mode {mode}: {nb} buckets x capacity {cap}, occupancy max "
+            f"{int(occ.max())} / mean {float(occ.float().mean()):.0f}: "
+            f"{nb * cap / st.nnz:.2f} slots per nonzero (nnz {st.nnz})")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    r = spec.rank
+    fs = [torch.randn(d, r, generator=gen, device="cuda") / r ** 0.5
+          for d in spec.shape]
+    rows = spec.shape[0]
+    bo = ds.omega.row_buckets(0, ds.block_rows)
+    bk = st.row_buckets(0, ds.block_rows)
+    others = [None] + fs[1:]
+    err_m = held(torch, "mttkrp_bucketed on skewed buckets",
+                 kops.mttkrp_bucketed(bk, others),
+                 kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                          others, 0, ds.block_rows)[:rows],
+                 "phase 7d")
+    x = fs[0]
+
+    def plain_cg():
+        return kref.cg_matvec_bucketed_ref(bo.values, bo.indices,
+                                           bo.local_row, fs, x, 0,
+                                           ds.block_rows)[:rows]
+
+    err = held(torch, "cg_matvec_bucketed on skewed buckets",
+               kops.cg_matvec_bucketed(bo, fs, x), plain_cg(), "phase 7d")
+    n_valid = int(bo.valid.sum())
+    # The function needs only the valid entries: count their bytes, not the
+    # padded slots (about 11 per entry here, the skew cost this row shows)
+    slot_bytes = sum(t[0, 0].numel() * t.element_size()
+                     for t in (bo.values, bo.indices, bo.local_row, bo.valid))
+    out_bytes = 4 * bo.num_blocks * ds.block_rows * r
+    b_ms, b_by = bound(n_valid * slot_bytes + nbytes(*fs[1:], x) + out_bytes,
+                       n_valid * r * (len(fs) + 2))
+    log(f"  skewed mode 0: {n_valid} valid entries x {slot_bytes} B; the "
+        f"{bo.num_blocks * bo.capacity} padded slots hold "
+        f"{bo.num_blocks * bo.capacity * slot_bytes} B")
+    row = dict(
+        name="cg_matvec_skewed", route="cuda",
+        source="port/repro_torch/csrc/cg_matvec.cu",
+        replaces="src/repro/kernels/cg_matvec.py:66",
+        launches=sum(n["cg_matvec"] for n in launches.values()),
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: kops.cg_matvec_bucketed(bo, fs, x), 50),
+        plain_ms=time_ms(torch, plain_cg, 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"netflix-small mode 0: nb={bo.num_blocks} C={bo.capacity} "
+              f"block_rows={ds.block_rows} R={r} valid={n_valid}")
+    log(f"  mttkrp vs plain max |err| {err_m:.2e}; fused matvec "
+        f"{row['ms']:.3f} ms (plain {row['plain_ms']:.3f}, bound "
+        f"{b_ms:.4f} ms by {b_by}), max |err| {err:.2e}, launches in the "
+        f"netflix-small runs {row['launches']}")
+    return {f"netflix-small {k}": v for k, v in launches.items()}, row
+
+
+def phase_dump(torch, tmp):
+    """7e: ``launch.complete --dump-factors DIR``, restored by the port's
+    checkpointer against the printed metadata."""
+    from repro_torch import checkpoint
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import complete
+    out = os.path.join(tmp, "factors")
+    dims, sweeps = (2000, 1500, 1000), 2
+    log(f"phase 7e: launch.complete --algorithm als --dims "
+        f"{','.join(map(str, dims))} --dump-factors DIR")
+    kops.reset_launch_counts()
+    run = complete.main(["--algorithm", "als", "--dims",
+                         ",".join(map(str, dims)), "--nnz", "2000000",
+                         "--rank", str(RANK), "--sweeps", str(sweeps),
+                         "--seed", str(SEED), "--device", "cuda",
+                         "--dump-factors", out])
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    step = checkpoint.latest_step(out)
+    meta = checkpoint.read_manifest(out, step)["metadata"]
+    log(f"  step {step}, metadata {json.dumps(meta, sort_keys=True)}")
+    if set(meta) != DUMP_KEYS or step != sweeps:
+        raise SystemExit(f"phase 7e: step {step}, metadata keys "
+                         f"{sorted(meta)}")
+    like = {f"factor_{d}": torch.zeros(n, meta["rank"], device="cuda")
+            for d, n in enumerate(meta["shape"])}
+    got, _ = checkpoint.restore(out, step, like)
+    for d, f in enumerate(run.factors):
+        g = got[f"factor_{d}"]
+        if g.device.type != "cuda" or not torch.equal(g, f):
+            raise SystemExit(f"phase 7e: factor_{d} restored on {g.device} "
+                             f"differs from the run's")
+    log(f"  restored {len(got)} factors onto the card, equal to the run's")
+    return {"dump-factors als": launches}
+
+
+def phase_streamed(torch):
+    """Phase 7: 7a to 7e. Returns the launches of each run and the kernel
+    rows of this phase."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        ds, wall = phase_stream(torch)
+        spec, counts = phase_experiment(torch, ds, wall, tmp)
+        counts.update(phase_restart(torch, ds, spec, tmp))
+        del ds
+        torch.cuda.empty_cache()
+        skew_counts, row = phase_skewed(torch, tmp)
+        counts.update(skew_counts)
+        counts.update(phase_dump(torch, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 7: passed; peak memory in phase 7 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return counts, [row]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -875,13 +1280,18 @@ def main():
         phase_profile(torch, run, path)
     solver_counts, solver_rows = phase_solvers(torch, run)
     kernels += solver_rows
-    # phase 7: each kernel's launches in every run of phases 3 and 6, each
-    # counted from zero
+    # free phase 3's dataset (phase 6 ran on it) before phase 7
+    del run
+    torch.cuda.empty_cache()
+    stream_counts, stream_rows = phase_streamed(torch)
+    kernels += stream_rows
+    # phase 8: each kernel's launches in every run of phases 3, 6 and 7,
+    # each counted from zero
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
-             **solver_counts}
+             **solver_counts, **stream_counts}
     for row in kernels:
-        group = "tttp" if row["name"].startswith("tttp") else \
-            row["name"].replace("_bucketed", "")
+        group = next(g for g in ("tttp", "mttkrp", "cg_matvec")
+                     if row["name"].startswith(g))
         row["path_launches"] = {p: n[group] for p, n in paths.items()}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

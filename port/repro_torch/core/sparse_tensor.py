@@ -30,6 +30,8 @@ class SparseTensor:
     shape: Tuple[int, ...]
     nnz: Optional[int] = None          # global nonzero count hint
     sorted_mode: Optional[int] = None  # mode by which entries are sorted
+    # nonzero-row count per mode, streamed at ingest (a planner hint)
+    nnz_rows: Optional[Tuple[int, ...]] = None
     _pattern_cache: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False)
     # (mode, block_rows) -> (values, values._version, valid, valid._version,
@@ -96,14 +98,14 @@ class SparseTensor:
         perm = torch.sort(key, stable=True).indices
         return SparseTensor(self.indices[perm], self.values[perm],
                             self.valid[perm], self.shape, self.nnz,
-                            sorted_mode=mode)
+                            sorted_mode=mode, nnz_rows=self.nnz_rows)
 
     def with_values(self, values: torch.Tensor) -> "SparseTensor":
         """Same pattern, new values (zeroed on padding). Shares the cached
         bucket patterns, not the gathered bucket values."""
         return SparseTensor(self.indices, torch.where(self.valid, values, 0),
                             self.valid, self.shape, self.nnz,
-                            self.sorted_mode,
+                            self.sorted_mode, self.nnz_rows,
                             _pattern_cache=self._pattern_cache)
 
     def row_buckets(self, mode: int, block_rows: int):

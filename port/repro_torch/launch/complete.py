@@ -3,7 +3,7 @@
     python -m repro_torch.launch.complete --algorithm als --dataset function \\
         --dims 200,180,160 --nnz 200000 --rank 10 --sweeps 10 \\
         [--loss quadratic] [--matvec-path fused|tttp_mttkrp] \\
-        [--device cuda|cpu]
+        [--ckpt-dir DIR] [--dump-factors DIR|PATH.npz] [--device cuda|cpu]
 
 Algorithms, as in the reference: ``als`` (implicit-CG ALS, quadratic
 loss), ``ccd``/``ccd_tttp`` (CCD++, gather/segment-sum or TTTP-routed),
@@ -16,41 +16,49 @@ On ``cuda`` the sweeps run the three hand-written kernels: TTTP for model
 values and the RMSE, the bucketed MTTKRP for right-hand sides and
 gradients, and the fused CG matvec (or TTTP + bucketed MTTKRP with
 ``--matvec-path tttp_mttkrp``) in the CG loops of ``als`` and ``ggn``.
-``--init-npz`` loads the tensor (``indices``, ``values``, ``valid``,
-``shape``) and the initial ``factor_<d>`` from a file, so a run can start
-from the JAX package's arrays; ``--dump-factors x.npz`` writes the final
-``factor_<d>``. Each sweep prints ``sweep i  <ms> ms  rmse=<rmse>``, its time
-fenced by ``torch.cuda.synchronize()``, and for ``gcp`` and ``ggn`` the
-objective they lower on the same line (``ggn`` also its damping).
+``--dataset`` is the function tensor or the Netflix-shaped ratings tensor
+(``data.synthetic.netflix_like``, three dims). ``--init-npz`` loads the
+tensor (``indices``, ``values``, ``valid``, ``shape``) and the initial
+``factor_<d>`` from a file, so a run can start from the JAX package's
+arrays. Each sweep prints ``sweep i  <ms> ms  rmse=<rmse>``, its time fenced
+by ``torch.cuda.synchronize()``, and for ``gcp`` and ``ggn`` the objective
+they lower on the same line (``ggn`` also its damping).
 
-The Netflix-shaped dataset, checkpointing, ``--mesh`` and the planner's
-matvec paths (``auto``, ``sliced``, ``dense``) are refused with a message:
-they are later slices of the port.
+``--ckpt-dir DIR`` runs the sweeps through ``runtime.RestartableLoop``
+(a checkpoint every 5 sweeps and one at the end) and resumes from the
+newest checkpoint in DIR. Unlike the reference, which checkpoints into
+``/tmp/repro_completion_ckpt`` by default, the flag has no default: without
+it nothing is checkpointed and nothing resumed. ``--dump-factors PATH.npz``
+writes the final ``factor_<d>``; any other path is a checkpoint directory,
+written as the reference writes it (step = ``--sweeps``, leaves
+``factor_<d>``, metadata ``kind``, ``rank``, ``shape``, ``algorithm``,
+``loss``, ``link``, ``dataset``, ``nnz``, ``sweeps``).
+
+``--mesh`` and the planner's matvec paths (``auto``, ``sliced``,
+``dense``) are refused with a message: they are later slices of the port.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt
 from repro_torch import interop
 from repro_torch.core import losses as LOSS
-from repro_torch.core.completion.als import MATVEC_PATHS, als_sweep
-from repro_torch.core.completion.ccd import (ccd_sweep, ccd_sweep_tttp,
-                                             residual_values)
-from repro_torch.core.completion.gauss_newton import (GGNState, ggn_init,
-                                                      ggn_sweep)
-from repro_torch.core.completion.gcp import gcp_adam_init, gcp_loss, gcp_step
-from repro_torch.core.completion.sgd import sgd_sweep
+from repro_torch.core.completion import GGNState, make_step
+from repro_torch.core.completion.als import MATVEC_PATHS
+from repro_torch.core.completion.gcp import gcp_loss
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import CompletionDataset
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime import RestartableLoop
 
 ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
 # the reference's planner candidates for the Gram matvec, not ported yet
@@ -91,10 +99,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--init-npz", default=None, metavar="PATH",
                     help="load the tensor (indices, values, valid, shape) "
                          "and initial factor_<d> from PATH")
-    ap.add_argument("--dump-factors", default=None, metavar="PATH.npz",
-                    help="write the final factors as factor_0..factor_{N-1}")
+    ap.add_argument("--dump-factors", default=None, metavar="PATH",
+                    help="write the final factors as factor_0..factor_{N-1}: "
+                         "an .npz file, or else a checkpoint directory with "
+                         "the run's metadata")
+    ap.add_argument("--ckpt-dir", default=None, metavar="DIR",
+                    help="checkpoint every 5 sweeps into DIR and resume from "
+                         "its newest checkpoint (no default: without it "
+                         "nothing is checkpointed)")
     ap.add_argument("--mesh", default=None, help="not ported yet")
-    ap.add_argument("--ckpt-dir", default=None, help="not ported yet")
     return ap
 
 
@@ -107,17 +120,12 @@ def check_supported(args) -> None:
         raise SystemExit(f"--matvec-path {args.matvec_path}: a planner "
                          f"candidate; the planner is not ported yet (use "
                          f"{' or '.join(MATVEC_PATHS)})")
-    if args.dataset != "function" and args.init_npz is None:
-        raise SystemExit(f"--dataset {args.dataset}: only 'function' is "
-                         f"ported so far")
+    if args.dataset == "netflix" and args.init_npz is None and \
+            len(args.dims.split(",")) != 3:
+        raise SystemExit("--dataset netflix: --dims takes three sizes "
+                         "(users, movies, days)")
     if args.mesh is not None:
         raise SystemExit("--mesh: the port runs on one device so far")
-    if args.ckpt_dir is not None:
-        raise SystemExit("--ckpt-dir: checkpointing is not ported yet")
-    if args.dump_factors is not None and \
-            not args.dump_factors.endswith(".npz"):
-        raise SystemExit("--dump-factors: only the .npz format is ported "
-                         "so far")
 
 
 @dataclasses.dataclass
@@ -126,7 +134,8 @@ class Run:
     factors, the RMSE before the first sweep, ``(sweep, seconds, rmse)`` per
     sweep, the factors after each sweep and each sweep's kernel launches.
     For ``gcp`` and ``ggn`` also the objective, before the first sweep and
-    after each, and for ``ggn`` the damping after each sweep."""
+    after each, and for ``ggn`` the damping after each sweep. A run resumed
+    from ``--ckpt-dir`` records only the sweeps it ran."""
     dataset: CompletionDataset
     init_factors: List[torch.Tensor]
     factors: List[torch.Tensor]
@@ -163,7 +172,10 @@ def load_problem(args) -> Tuple[CompletionDataset, List[torch.Tensor]]:
                 [z[f"factor_{d}"] for d in range(len(shape))], device)
     else:
         shape = tuple(int(x) for x in args.dims.split(","))
-        raw = synthetic.function_tensor(shape, args.nnz, gen)
+        if args.dataset == "netflix":
+            raw = synthetic.netflix_like(shape, args.nnz, gen)
+        else:
+            raw = synthetic.function_tensor(shape, args.nnz, gen)
         factors = None
     ds = CompletionDataset(raw, gen, block_rows=args.block_rows)
     if factors is None:
@@ -173,54 +185,19 @@ def load_problem(args) -> Tuple[CompletionDataset, List[torch.Tensor]]:
     return ds, factors
 
 
-def make_step(args, ds: CompletionDataset, factors: Sequence[torch.Tensor]
-              ) -> Tuple[object, Callable, Callable]:
-    """``(state0, step, get_factors)`` of ``args.algorithm``:
-    ``step(state)`` runs one sweep and ``get_factors(state)`` reads the
-    factors out of a state."""
-    st, omega, br = ds.tensor, ds.omega, ds.block_rows
-    loss = LOSS.LOSSES[args.loss]
-    a = args.algorithm
-    if a == "als":
-        return (list(factors),
-                lambda fs: als_sweep(st, omega, fs, args.lam,
-                                     cg_tol=args.cg_tol,
-                                     cg_iters=args.cg_iters,
-                                     matvec_path=args.matvec_path,
-                                     block_rows=br),
-                list)
-    if a in ("ccd", "ccd_tttp"):
-        sweep = ccd_sweep if a == "ccd" else ccd_sweep_tttp
-        return ((list(factors), residual_values(st, factors)),
-                lambda s: sweep(st, s[0], s[1], args.lam),
-                lambda s: s[0])
-    if a == "sgd":
-        gen = torch.Generator(device=st.device).manual_seed(args.seed)
-        sample = max(1024, int(args.sample_rate * st.nnz))
-        return (list(factors),
-                lambda fs: sgd_sweep(gen, st, fs, args.lam, args.lr, sample,
-                                     block_rows=br),
-                list)
-    if a == "gcp":
-        return ((list(factors), gcp_adam_init(factors)),
-                lambda s: gcp_step(st, s[0], loss, args.lam, args.lr, s[1],
-                                   block_rows=br),
-                lambda s: s[0])
-    return (ggn_init(factors, damping=args.damping),
-            lambda s: ggn_sweep(st, s, loss, args.lam, cg_tol=args.cg_tol,
-                                cg_iters=args.cg_iters,
-                                matvec_path=args.matvec_path, block_rows=br),
-            lambda s: list(s.factors))
-
-
 def run_solver(args, ds: CompletionDataset,
                factors: Sequence[torch.Tensor]) -> Run:
-    """``args.sweeps`` sweeps of ``args.algorithm`` from ``factors``."""
+    """``args.sweeps`` sweeps of ``args.algorithm`` from ``factors``,
+    through ``RestartableLoop`` when ``args.ckpt_dir`` is set."""
     st = ds.tensor
     device = st.device
     loss = LOSS.LOSSES[args.loss]
     with_objective = args.algorithm in ("gcp", "ggn")
-    state, step, get_factors = make_step(args, ds, factors)
+    state0, step, get_factors = make_step(
+        args.algorithm, st, ds.omega, factors, lam=args.lam,
+        block_rows=ds.block_rows, loss=args.loss, cg_tol=args.cg_tol,
+        cg_iters=args.cg_iters, matvec_path=args.matvec_path, lr=args.lr,
+        sample_rate=args.sample_rate, damping=args.damping, seed=args.seed)
     e0 = rmse(st, factors)
     objective = []
     line = f"sweep   -  initial      rmse={e0:.6f}"
@@ -229,11 +206,12 @@ def run_solver(args, ds: CompletionDataset,
         line += f"  objective={objective[0]:.6g}"
     print(line)
     hist, per_sweep, launches, damping = [], [], [], []
-    for i in range(args.sweeps):
+
+    def loop_step(i, state):
         _sync(device)
         before = kops.launch_counts()
         t0 = time.perf_counter()
-        state = step(state)
+        state = step(i, state)
         _sync(device)
         dt = time.perf_counter() - t0
         after = kops.launch_counts()
@@ -250,12 +228,45 @@ def run_solver(args, ds: CompletionDataset,
             damping.append(float(state.damping))
             line += f"  damping={damping[-1]:.3g}"
         print(line)
+        return state
+
+    if args.ckpt_dir:
+        state = RestartableLoop(args.ckpt_dir, loop_step, ckpt_every=5).run(
+            state0, args.sweeps)
+    else:
+        state = state0
+        for i in range(args.sweeps):
+            state = loop_step(i, state)
+    final = get_factors(state)
     if hist:
         print(f"final rmse={hist[-1][2]:.6f} "
               f"(mean sweep {sum(h[1] for h in hist) / len(hist) * 1e3:.1f}"
               f" ms)")
-    return Run(ds, list(factors), get_factors(state), e0, hist, per_sweep,
+    elif args.ckpt_dir:
+        print(f"final rmse={rmse(st, final):.6f} (all {args.sweeps} sweeps "
+              f"restored from {args.ckpt_dir})")
+    return Run(ds, list(factors), final, e0, hist, per_sweep,
                launches, objective, damping)
+
+
+def dump_factors(args, run: Run) -> None:
+    """Write the final factors to ``args.dump_factors``: an ``.npz``, or a
+    checkpoint directory with the reference's metadata."""
+    fs = run.factors
+    st = run.dataset.tensor
+    if args.dump_factors.endswith(".npz"):
+        np.savez(args.dump_factors,
+                 **{f"factor_{d}": f.cpu().numpy() for d, f in enumerate(fs)})
+    else:
+        link = "log" if args.loss.endswith("_log") else "identity"
+        ckpt.save(args.dump_factors, args.sweeps,
+                  {f"factor_{d}": f for d, f in enumerate(fs)},
+                  metadata={"kind": "cp_factors", "rank": fs[0].shape[1],
+                            "shape": list(st.shape),
+                            "algorithm": args.algorithm, "loss": args.loss,
+                            "link": link, "dataset": args.dataset,
+                            "nnz": int(st.nnz), "sweeps": args.sweeps})
+    print(f"wrote factors to {args.dump_factors}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Run:
@@ -272,10 +283,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
           f"device={st.device} ingest={time.perf_counter() - t0:.2f} s")
     run = run_solver(args, ds, factors)
     if args.dump_factors:
-        np.savez(args.dump_factors,
-                 **{f"factor_{d}": f.cpu().numpy()
-                    for d, f in enumerate(run.factors)})
-        print(f"wrote factors to {args.dump_factors}")
+        dump_factors(args, run)
     return run
 
 

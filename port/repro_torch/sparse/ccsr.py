@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.sparse_tensor import SparseTensor
@@ -122,3 +123,39 @@ def bucket_capacity(counts, capacity_multiple: int = 8) -> int:
     counts = torch.as_tensor(counts)
     most = int(counts.max()) if counts.numel() else 1
     return round_up(max(most, 1), capacity_multiple)
+
+
+class IncrementalBucketBuilder:
+    """Bucket occupancy counted at ingest, chunk by chunk.
+
+    The streamed ingest (``repro_torch.data.streaming``) cannot afford a
+    whole-tensor counting pass per mode once its runs are spilled, so this
+    builder ``observe``s each deduplicated chunk's indices on the host and
+    keeps int64 counts per mode in O(Σ I_d / block_rows) memory. ``build``
+    hands :func:`bucket_pattern` the capacity those counts give. Duplicates
+    across chunks, dropped later at the shard merge, can only make the
+    counts too high: the capacity is a safe, slightly padded bound.
+    ``counts`` resumes from counts streamed earlier (``IngestStats``)."""
+
+    def __init__(self, shape, block_rows: int, counts=None):
+        self.shape = tuple(int(s) for s in shape)
+        self.block_rows = int(block_rows)
+        self.counts = ([np.zeros(cdiv(s, block_rows), np.int64)
+                        for s in self.shape] if counts is None
+                       else [np.asarray(c, np.int64) for c in counts])
+
+    def observe(self, indices: np.ndarray) -> None:
+        """Add one chunk's (n, ndim) indices to the counts."""
+        for d in range(len(self.shape)):
+            b = indices[:, d] // self.block_rows
+            self.counts[d] += np.bincount(
+                b, minlength=self.counts[d].shape[0]).astype(np.int64)
+
+    def capacity(self, mode: int, capacity_multiple: int = 8) -> int:
+        return bucket_capacity(self.counts[mode], capacity_multiple)
+
+    def build(self, st: SparseTensor, mode: int) -> BucketPattern:
+        """Pattern of ``st`` (the finalized tensor over the observed Ω) with
+        the streamed capacity."""
+        return bucket_pattern(st, mode, self.block_rows,
+                              capacity=self.capacity(mode))

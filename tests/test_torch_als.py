@@ -236,13 +236,18 @@ def test_cli_from_npz_matches_reference_sweep(tmp_path, capsys, path):
 
 @pytest.mark.parametrize("argv", [["--algorithm", "ggn", "--matvec-path",
                                    "auto"], ["--mesh", "2,1"],
-                                  ["--ckpt-dir", "ck"],
-                                  ["--dataset", "netflix"],
-                                  ["--dump-factors", "ckpt_dir"],
+                                  ["--mesh", "4,2", "--ckpt-dir", "ck"],
+                                  ["--algorithm", "als", "--matvec-path",
+                                   "auto"],
+                                  ["--algorithm", "ggn", "--matvec-path",
+                                   "dense"],
                                   ["--algorithm", "ggn", "--matvec-path",
                                    "sliced"],
                                   ["--matvec-path", "dense"]])
 def test_cli_refuses_unported(argv):
+    """The planner's matvec paths and --mesh (checkpoints, --dataset
+    netflix and --dump-factors DIR run since the third slice of the port:
+    tests/test_torch_{experiment,checkpoint}.py)."""
     with pytest.raises(SystemExit, match="port|ported"):
         complete.main(["--device", "cpu"] + argv)
 

@@ -9,6 +9,7 @@ installed:
 Tolerance rtol = atol = 1e-4: shared-memory atomics change the order of the
 bucket sums from run to run."""
 import dataclasses
+import math
 import os
 import sys
 
@@ -319,3 +320,109 @@ def test_ccd_sweep_tttp_on_card_matches_plain_path(dev):
     for g, w in zip(got, want):
         torch.testing.assert_close(g.cpu(), w, **TOL)
     torch.testing.assert_close(got_rho.cpu(), want_rho, **TOL)
+
+
+# streamed layouts: the function stream sorted by linearized coordinate
+# (mode 0's sel is monotone), and netflix-ci's Zipf-skewed buckets (mode 0's
+# fullest bucket holds several times the mean)
+STREAMED = [("function", (60, 40, 20), 20_000, 4_096),
+            ("netflix", (80, 60, 20), 15_000, 4_096)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,shape,nnz,chunk", STREAMED)
+def test_kernels_on_streamed_layouts_match_plain_versions(dev, kind, shape,
+                                                          nnz, chunk):
+    from repro_torch.data import streaming
+    from repro_torch.data.pipeline import CompletionDataset
+    ds = CompletionDataset.from_stream(
+        streaming.make_stream(kind, 0, shape, nnz, chunk), shape,
+        test_fraction=0.1, device=dev)
+    st = ds.tensor
+    assert st.device.type == "cuda" and st.sorted_mode == 0
+    rng = np.random.default_rng(1)
+    fs = interop.factors_from_numpy(
+        [(0.5 * rng.standard_normal((s, 6))).astype(np.float32)
+         for s in shape], dev)
+    kops.reset_launch_counts()
+    torch.testing.assert_close(kops.tttp_values(st, fs),
+                               kref.tttp_ref(st.values, st.indices, st.valid,
+                                             fs), **TOL)
+    for mode in range(3):
+        bk = st.row_buckets(mode, ds.block_rows)
+        others = list(fs)
+        others[mode] = None
+        torch.testing.assert_close(
+            kops.mttkrp_bucketed(bk, others),
+            kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                     others, mode,
+                                     ds.block_rows)[:shape[mode]], **TOL)
+        om = ds.omega.row_buckets(mode, ds.block_rows)
+        torch.testing.assert_close(
+            kops.cg_matvec_bucketed(om, fs, fs[mode]),
+            kref.cg_matvec_bucketed_ref(om.values, om.indices, om.local_row,
+                                        fs, fs[mode], mode,
+                                        ds.block_rows)[:shape[mode]], **TOL)
+    assert kops.launch_counts() == {"tttp": 1, "mttkrp": 3, "cg_matvec": 3}
+    if kind == "netflix":
+        occ = st.row_buckets(0, ds.block_rows).valid.sum(1).float()
+        assert float(occ.max()) > 3 * float(occ.mean())
+    m = streaming.heldout_metrics(ds.test, fs)
+    assert kops.launch_counts()["tttp"] == 2
+    assert math.isfinite(m["rmse"]) and m["count"] == ds.test.nnz
+
+
+@pytest.mark.cuda
+def test_checkpoint_round_trip_restores_onto_card(dev, tmp_path):
+    from repro_torch.checkpoint import checkpointer as ckpt
+    fs = [torch.randn(d, 4, device=dev) for d in (7, 5, 3)]
+    state = ggn.ggn_init(fs, damping=0.5)
+    ck = ckpt.Checkpointer(str(tmp_path))
+    ck.save_async(2, state, {"note": "card"})
+    fs[0].zero_()                  # the async save copied to the host first
+    ck.wait()
+    like = ggn.ggn_init([torch.zeros_like(f) for f in fs])
+    got, man = ckpt.restore(str(tmp_path), 2, like)
+    assert man["metadata"] == {"note": "card"}
+    assert all(f.device.type == "cuda" for f in got.factors)
+    assert got.damping.device.type == "cuda" and float(got.damping) == 0.5
+    assert not bool((got.factors[0] == 0).all())
+    for g, w in zip(got.factors[1:], fs[1:]):
+        assert torch.equal(g, w)
+    cpu, _ = ckpt.restore(str(tmp_path), 2, ckpt.tree_map(
+        lambda t: t.cpu(), like))
+    assert all(f.device.type == "cpu" for f in cpu.factors)
+
+
+@pytest.mark.cuda
+def test_span_fences_card_work_and_is_a_noop_under_graph_capture(dev):
+    from repro_torch import obs
+    a = torch.randn(4096, 4096, device=dev)
+    obs.enable()
+    obs.get_registry().reset()
+    try:
+        torch.cuda.synchronize()
+        with obs.span("matmul") as sp:
+            for _ in range(20):
+                b = a @ a
+            sp.fence(b)
+        assert torch.cuda.current_stream().query()     # fenced: work done
+        assert sp.record["dur_s"] > 0
+        x = torch.ones(8, device=dev)
+        g = torch.cuda.CUDAGraph()
+        s = torch.cuda.Stream()
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            y = x * 2                                   # warm-up
+            with torch.cuda.graph(g):
+                with obs.span("captured") as cap:
+                    assert not cap.live and obs.capturing()
+                    y = cap.fence(x * 2)
+        torch.cuda.current_stream().wait_stream(s)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, x * 2)
+        assert set(obs.get_registry().summary()["timings"]) == {"matmul"}
+    finally:
+        obs.disable()
+        obs.get_registry().reset()

@@ -404,13 +404,15 @@ def test_ggn_sweep_and_joint_step_match_reference_per_iteration(
 # ---------------------------------------------------------------------------
 
 def test_port_sources_import_neither_jax_nor_repro():
-    """No module under port/repro_torch imports jax or the JAX package, at
-    any place in the file (the subprocess test in test_torch_sparse.py
-    checks the top-level imports at run time)."""
+    """No module under port/repro_torch, and not chip_smoke.py, imports jax
+    or the JAX package (``repro``; ``repro_torch`` is the port), at any
+    place in the file (the subprocess test in test_torch_sparse.py checks
+    the top-level imports at run time)."""
     root = os.path.join(PORT, "repro_torch")
     files = [os.path.join(d, f) for d, _, fs in os.walk(root)
              for f in fs if f.endswith(".py")]
-    assert len(files) >= 25
+    assert len(files) >= 35
+    files.append(os.path.join(PORT, "..", "chip_smoke.py"))
     bad = []
     for path in files:
         with open(path) as fh:
