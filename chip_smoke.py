@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-eight phases and stops with a non-zero exit at the first failure:
+nine phases and stops with a non-zero exit at the first failure:
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each kernel's registers and spills;
@@ -101,8 +101,30 @@ eight phases and stops with a non-zero exit at the first failure:
       restored by the port's checkpointer onto the card from the metadata
       it wrote;
    then print the peak device memory of phase 7;
-8. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3, 6 and 7 under
+8. drive the serving path (``repro_torch.serve``), each run with the launch
+   counts zeroed before and read after:
+   a. ``launch.serve_complete --verify`` on 7e's factors: 100 000 queries
+      at batch 1024, top-10, 32 cold users folded in; fails on a non-zero
+      exit or without ``verify OK``, or unless all three kernels launched;
+   b. the paper-netflix extents and rank (480 189 x 17 770 x 2 182, R =
+      32; factors from the seed, N(0, 1/R), written by the checkpointer
+      with the dump metadata and restored by ``load_factors``) through the
+      engine's CUDA graphs: 1 048 576 scored queries in batches of 1024
+      (QPS and per-batch p50/p95/p99), top-10 over movies for 1024 queries
+      and over users for 64 (118 blocks of 4096 rows), and 1024 cold users
+      x 200 ratings folded in (128 buckets of 8 users); each first
+      (capturing) call timed apart from the replays; every output finite
+      and within the ``--verify`` limits of a float64 host oracle (scores
+      and top-k 1e-6 x max(1, max|s|), fold-in rows 1e-4); one TTTP per
+      score call and one MTTKRP and 1 + 128 fused matvecs per fold-in call,
+      counted through the replays; then TTTP at the score batch and the
+      MTTKRP and the fused matvec (``bucket_rows_kernel<32, ...>``) at the
+      fold-in layout, each held against its plain version (phase 4's
+      tolerance) and timed beside its bound (the bytes of the entries and
+      of the distinct factor rows they gather); print phase 8's peak
+      device memory;
+9. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3, 6, 7 and 8 under
    ``path_launches``), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -111,8 +133,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -173,6 +197,34 @@ def time_ms(torch, fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(torch, fn, reps):
+    """Mean device time of ``fn`` in ms over ``reps`` calls captured in one
+    CUDA graph, by CUDA events around its replay: the device's time for
+    the work, without the host's time to enqueue it (which the serving
+    engine's replays do not pay either). The launches the capture records
+    are taken back out of the counts."""
+    from repro_torch.kernels import ops as kops
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with kops.recorded_launches():
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -1234,30 +1286,387 @@ def phase_dump(torch, tmp):
             raise SystemExit(f"phase 7e: factor_{d} restored on {g.device} "
                              f"differs from the run's")
     log(f"  restored {len(got)} factors onto the card, equal to the run's")
-    return {"dump-factors als": launches}
+    return {"dump-factors als": launches}, out
 
 
-def phase_streamed(torch):
-    """Phase 7: 7a to 7e. Returns the launches of each run and the kernel
-    rows of this phase."""
-    import shutil
-    import tempfile
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        ds, wall = phase_stream(torch)
-        spec, counts = phase_experiment(torch, ds, wall, tmp)
-        counts.update(phase_restart(torch, ds, spec, tmp))
-        del ds
-        torch.cuda.empty_cache()
-        skew_counts, row = phase_skewed(torch, tmp)
-        counts.update(skew_counts)
-        counts.update(phase_dump(torch, tmp))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def phase_streamed(torch, tmp):
+    """Phase 7: 7a to 7e, with its files under ``tmp``. Returns the
+    launches of each run, the kernel rows of this phase and 7e's factor
+    directory."""
+    torch.cuda.reset_peak_memory_stats()
+    ds, wall = phase_stream(torch)
+    spec, counts = phase_experiment(torch, ds, wall, tmp)
+    counts.update(phase_restart(torch, ds, spec, tmp))
+    del ds
+    torch.cuda.empty_cache()
+    skew_counts, row = phase_skewed(torch, tmp)
+    counts.update(skew_counts)
+    dump_counts, dump = phase_dump(torch, tmp)
+    counts.update(dump_counts)
     log(f"phase 7: passed; peak memory in phase 7 "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return counts, [row]
+    return counts, [row], dump
+
+
+# ---------------------------------------------------------------------------
+# phase 8
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH = 1024
+SERVE_QUERIES = 1 << 20
+TOPK = 10
+TOPK_ITEM_QUERIES = 1024
+TOPK_USER_QUERIES = 64
+FOLDIN_USERS = 1024
+FOLDIN_NNZ = 200           # ~ the paper's 100.5 M ratings / 480 189 users
+FOLDIN_LAM = 1e-2
+
+
+class Tee:
+    """A stdout that also keeps what it was given."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def phase_serve_dump(torch, path):
+    """8a: ``launch.serve_complete --verify`` on phase 7e's factors."""
+    import contextlib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve_complete
+    argv = ["--factors", path, "--num-queries", "100000", "--batch-size",
+            str(SERVE_BATCH), "--topk", str(TOPK), "--foldin-users", "32",
+            "--verify", "--device", "cuda"]
+    log(f"phase 8a: launch.serve_complete on phase 7e's factors "
+        f"{' '.join(argv[2:])}")
+    tee = Tee(sys.stdout)
+    kops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(tee):
+            serve_complete.main(argv)
+    except SystemExit as exc:
+        raise SystemExit(f"phase 8a: serve_complete exited {exc.code}")
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    if "verify OK" not in "".join(tee.parts).splitlines():
+        raise SystemExit("phase 8a: serve_complete did not print verify OK")
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise SystemExit(f"phase 8a: kernels not launched: {missing}")
+    log(f"  launches {launches}")
+    return {"serve 7e": launches}
+
+
+def distinct_row_bytes(torch, indices, factors, skip=None):
+    """Bytes of the factor rows that ``indices`` (n, nd) gather, each
+    distinct row once (mode ``skip`` left out)."""
+    total = 0
+    for d, f in enumerate(factors):
+        if d != skip and f is not None:
+            total += int(torch.unique(indices[:, d]).numel()) * \
+                f.shape[1] * f.element_size()
+    return total
+
+
+def check_topk(label, fs64, fixed, target, vals, idx):
+    """Hold served top-k against the float64 host scores of every item:
+    the values against the true top-k values and against the true scores
+    at the returned items, both within 1e-6 · max(1, max|s|)."""
+    import numpy as np
+    q = None
+    for d in sorted(fixed):
+        rows = fs64[d][fixed[d]]
+        q = rows if q is None else q * rows
+    full = q @ fs64[target].T
+    j = full.shape[1]
+    want = np.sort(np.partition(full, j - TOPK, axis=1)[:, j - TOPK:],
+                   axis=1)[:, ::-1]
+    lim = 1e-6 * max(1.0, float(np.abs(full).max()))
+    err_v = float(np.abs(vals - want).max())
+    err_i = float(np.abs(np.take_along_axis(full, idx.astype(np.int64), 1)
+                         - vals).max())
+    if not (np.isfinite(vals).all() and err_v <= lim and err_i <= lim):
+        raise SystemExit(f"phase 8b: {label}: top-k values off by {err_v:.3e}"
+                         f", scores at the returned items by {err_i:.3e} "
+                         f"(limit {lim:.3e})")
+    return err_v, err_i, lim
+
+
+def phase_serve_netflix(torch, tmp, held_before):
+    """8b: serving at the paper-netflix extents and rank, factors from the
+    seed, through the engine's CUDA graphs; each endpoint held against its
+    float64 host oracle, then each kernel held at its serving shape.
+    ``held_before`` is the bytes allocated when phase 8 began."""
+    import numpy as np
+    from repro_torch import checkpoint
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import experiment
+    from repro_torch.launch import serve_complete as sc
+    from repro_torch.serve import ServeEngine, load_factors, percentiles
+    from repro_torch.serve.foldin import omega_view
+    spec = experiment.SPECS["paper-netflix"]
+    shape, r = spec.shape, spec.rank
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    made = [torch.randn(n, r, generator=gen, device="cuda") / r ** 0.5
+            for n in shape]
+    fbytes = nbytes(*made)
+    log(f"phase 8b: serving at the {spec.name} extents {shape}, R={r}: "
+        f"{sum(shape)} x {r} fp32 = {fbytes / 1e6:.1f} MB of factors drawn "
+        f"from N(0, 1/R) (seed {SEED}; the real ratings are not in the "
+        f"repository)")
+    path = os.path.join(tmp, "paper_netflix")
+    meta = {"kind": "cp_factors", "rank": r, "shape": list(shape),
+            "algorithm": "none", "loss": "quadratic", "link": "identity",
+            "dataset": spec.name, "nnz": 0, "sweeps": 0}
+    checkpoint.save(path, 0, {f"factor_{d}": f for d, f in enumerate(made)},
+                    metadata=meta)
+    model = load_factors(path, device="cuda")
+    for d, (f, g) in enumerate(zip(model.factors, made)):
+        if f.device.type != "cuda" or not torch.equal(f, g):
+            raise SystemExit(f"phase 8b: factor_{d} restored on {f.device} "
+                             f"differs from the one saved")
+    if model.meta != meta or model.link != "identity":
+        raise SystemExit(f"phase 8b: restored metadata {model.meta}")
+    del made
+    fs = model.factors
+    fs64 = sc.host_factors(model)
+    engine = ServeEngine(model, max_batch=SERVE_BATCH, device="cuda")
+    rng = np.random.default_rng(SEED)
+    counts = {}
+
+    # scoring: one graph (bucket 1024), every batch a replay but the first
+    queries = sc._gen_queries(rng, shape, SERVE_QUERIES)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first = engine.score(queries[:SERVE_BATCH])
+    first_s = time.perf_counter() - t0
+    scores = np.empty(SERVE_QUERIES, np.float32)
+    lat = []
+    t_all = time.perf_counter()
+    for lo in range(0, SERVE_QUERIES, SERVE_BATCH):
+        t0 = time.perf_counter()
+        scores[lo:lo + SERVE_BATCH] = engine.score(
+            queries[lo:lo + SERVE_BATCH])
+        lat.append(time.perf_counter() - t0)
+    wall = time.perf_counter() - t_all
+    counts["serve paper-netflix score"] = launches = kops.launch_counts()
+    calls = SERVE_QUERIES // SERVE_BATCH + 1
+    if launches != {"tttp": calls, "mttkrp": 0, "cg_matvec": 0}:
+        raise SystemExit(f"phase 8b: {calls} score calls launched "
+                         f"{launches}, not one TTTP each")
+    st = percentiles(lat)
+    log(f"phase 8b score: {SERVE_QUERIES} queries in {len(lat)} batches of "
+        f"{SERVE_BATCH}: {SERVE_QUERIES / wall:,.0f} QPS over {wall:.3f} s; "
+        f"per batch p50 {st['p50_us']:.1f} us, p95 {st['p95_us']:.1f}, p99 "
+        f"{st['p99_us']:.1f}, mean {st['mean_us']:.1f}, max "
+        f"{st['max_us']:.1f}; first (capturing) call {first_s * 1e3:.1f} ms; "
+        f"launches {launches} (one TTTP per call)")
+    err, lim = sc.verify_scores(fs64, queries, scores, model.link)
+    if not np.isfinite(scores).all() or err > lim:
+        raise SystemExit(f"phase 8b: scores off the float64 oracle by "
+                         f"{err:.3e} (limit {lim:.3e})")
+    if not np.array_equal(first, scores[:SERVE_BATCH]):
+        raise SystemExit("phase 8b: the replayed first batch differs from "
+                         "its eager (capturing) call")
+    log(f"  scores vs the float64 host gather chain: max|d| {err:.3e} "
+        f"(limit {lim:.3e}); replay of batch 0 equal to its eager call")
+
+    # top-10 over movies (mode 1) and over users (mode 0)
+    kops.reset_launch_counts()
+    topk_fixed = {}
+    for target, n in ((1, TOPK_ITEM_QUERIES), (0, TOPK_USER_QUERIES)):
+        fixed = topk_fixed[target] = {d: rng.integers(0, shape[d], size=n)
+                                      for d in range(3) if d != target}
+        t0 = time.perf_counter()
+        engine.top_k(fixed, target, TOPK)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        vals, idx = engine.top_k(fixed, target, TOPK)
+        dt = time.perf_counter() - t0
+        err_v, err_i, lim = check_topk(f"top-{TOPK} over mode {target}",
+                                       fs64, fixed, target, vals, idx)
+        blocks = -(-shape[target] // engine.topk_block)
+        log(f"phase 8b top-{TOPK} over mode {target} ({shape[target]} rows, "
+            f"{blocks} blocks of {engine.topk_block}) for {n} queries: "
+            f"{dt * 1e3:.3f} ms per call (replay), first (capturing) call "
+            f"{first_s * 1e3:.1f} ms; values vs float64 max|d| {err_v:.3e}, "
+            f"scores at the returned items {err_i:.3e} (limit {lim:.3e})")
+    counts["serve paper-netflix top-k"] = kops.launch_counts()
+
+    # fold-in: 1024 cold users x 200 ratings over (movie, day) in mode 0
+    hists = sc._gen_histories(rng, shape, 0, FOLDIN_USERS, FOLDIN_NNZ)
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    first_rows = engine.fold_in(hists, 0)
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = engine.fold_in(hists, 0)
+    dt = time.perf_counter() - t0
+    counts["serve paper-netflix fold-in"] = launches = kops.launch_counts()
+    iters = max(4 * r, 32)
+    if launches != {"tttp": 0, "mttkrp": 2, "cg_matvec": 2 * (1 + iters)}:
+        raise SystemExit(f"phase 8b: two fold-in calls launched {launches}, "
+                         f"not 1 MTTKRP and 1 + {iters} fused matvecs each")
+    bk = engine.history_buckets(hists, 0)
+    n_valid = int(bk.valid.sum())
+    log(f"phase 8b fold-in: {FOLDIN_USERS} users x {FOLDIN_NNZ} ratings "
+        f"({n_valid} entries, {bk.num_blocks} buckets of {bk.block_rows} "
+        f"users, capacity {bk.capacity}): {dt * 1e3:.2f} ms per call "
+        f"(replay), {dt * 1e6 / FOLDIN_USERS:.1f} us/user; first "
+        f"(capturing) call {first_s * 1e3:.1f} ms; launches per call "
+        f"mttkrp 1, cg_matvec 1 + {iters}")
+    for label, got in (("eager", first_rows), ("replay", rows)):
+        err = sc.verify_foldin(fs64, hists, 0, FOLDIN_LAM, got)
+        if not np.isfinite(got).all() or err > 1e-4:
+            raise SystemExit(f"phase 8b: fold-in ({label}) off the float64 "
+                             f"explicit solve by {err:.3e} (limit 1e-4)")
+        log(f"  fold-in ({label}) vs the float64 explicit one-row solve: "
+            f"max|d| {err:.3e} (limit 1e-4)")
+    t0 = time.perf_counter()
+    engine.history_buckets(hists, 0)
+    host_s = time.perf_counter() - t0
+    log(f"  of which the host side (packing, bucket pattern, two device "
+        f"waits): {host_s * 1e3:.2f} ms")
+    profile(torch, "phase 8b: one fold-in call (replay)",
+            lambda: engine.fold_in(hists, 0))
+    profile(torch, f"phase 8b: one top-{TOPK} call over users (replay)",
+            lambda: engine.top_k(topk_fixed[0], 0, TOPK))
+    gs = engine.graph_stats()
+    log(f"phase 8b graphs: {gs['captured']} captured, {gs['replays']} "
+        f"replays; first calls {gs['first_call_s']:.2f} s in all; launches "
+        f"per replay {gs['launches_per_replay']}")
+    log(f"phase 8b: peak device memory of the serving runs (8a and 8b's "
+        f"endpoints) {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"{(torch.cuda.max_memory_allocated() - held_before) / 2**30:.2f} "
+        f"GiB above what was allocated when phase 8 began")
+
+    # each kernel at its serving shape, against its plain version
+    rows_out = []
+    idx = torch.from_numpy(queries[:SERVE_BATCH]).to("cuda")
+    ones = torch.ones(SERVE_BATCH, device="cuda")
+    valid = torch.ones(SERVE_BATCH, dtype=torch.bool, device="cuda")
+    sb = SparseTensor(idx, ones, valid, shape, SERVE_BATCH)
+    err = held(torch, "tttp at the score batch", kops.tttp_values(sb, fs),
+               kref.tttp_ref(ones, idx, valid, fs), "phase 8b")
+    b_ms, b_by = bound(nbytes(idx, ones, valid) + 4 * SERVE_BATCH
+                       + distinct_row_bytes(torch, idx, fs),
+                       SERVE_BATCH * r * len(shape))
+    rows_out.append(dict(
+        name="tttp_serve_score", route="cuda",
+        source="port/repro_torch/csrc/tttp.cu",
+        replaces="src/repro/kernels/tttp.py:61",
+        launches=counts["serve paper-netflix score"]["tttp"],
+        max_abs_err=err,
+        ms=graph_ms(torch, lambda: kops.tttp_values(sb, fs), 200),
+        plain_ms=graph_ms(torch, lambda: kref.tttp_ref(ones, idx, valid, fs),
+                          50),
+        eager_ms=time_ms(torch, lambda: kops.tttp_values(sb, fs), 200),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=f"score batch: m={SERVE_BATCH} nd=3 R={r} (v = 1)"))
+
+    others = [None] + fs[1:]
+    bo = omega_view(bk)
+    x = torch.from_numpy(rows).to("cuda")
+    batch = bk.shape[0]
+
+    def plain_mttkrp():
+        return kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                        others, 0, bk.block_rows)[:batch]
+
+    def plain_cg():
+        return kref.cg_matvec_bucketed_ref(bo.values, bo.indices,
+                                           bo.local_row, fs, x, 0,
+                                           bo.block_rows)[:batch]
+
+    err_m = held(torch, "mttkrp at the fold-in layout",
+                 kops.mttkrp_bucketed(bk, others), plain_mttkrp(), "phase 8b")
+    err_c = held(torch, "fused matvec at the fold-in layout",
+                 kops.cg_matvec_bucketed(bo, fs, x), plain_cg(), "phase 8b")
+    keep = bk.valid
+    coo_idx = bk.indices[keep]
+    coo_val = bk.values[keep]
+    cols = [coo_idx[:, d].long() for d in range(3)]
+
+    def library_mttkrp():
+        prod = coo_val[:, None] * fs[1][cols[1]] * fs[2][cols[2]]
+        return torch.zeros(batch, r, device="cuda").index_add_(0, cols[0],
+                                                               prod)
+
+    # the function needs the valid entries only: their bytes, the factor
+    # rows they gather (each once), x and the output
+    entry_bytes = n_valid * sum(t[0, 0].numel() * t.element_size() for t in
+                                (bk.values, bk.indices, bk.local_row,
+                                 bk.valid))
+    frows = distinct_row_bytes(torch, coo_idx, fs, skip=0)
+    out_bytes = 4 * batch * r
+    shape_note = (f"fold-in: nb={bk.num_blocks} C={bk.capacity} "
+                  f"block_rows={bk.block_rows} R={r} valid={n_valid}")
+    b_ms, b_by = bound(entry_bytes + frows + out_bytes, n_valid * r * 3)
+    rows_out.append(dict(
+        name="mttkrp_serve_foldin", route="cuda",
+        source="port/repro_torch/csrc/mttkrp.cu",
+        replaces="src/repro/kernels/mttkrp.py:83",
+        launches=counts["serve paper-netflix fold-in"]["mttkrp"],
+        max_abs_err=err_m,
+        ms=graph_ms(torch, lambda: kops.mttkrp_bucketed(bk, others), 50),
+        plain_ms=graph_ms(torch, plain_mttkrp, 20), bound_ms=b_ms,
+        bound_by=b_by, library_ms=graph_ms(torch, library_mttkrp, 50),
+        eager_ms=time_ms(torch, lambda: kops.mttkrp_bucketed(bk, others),
+                         50),
+        shape=shape_note))
+    b_ms, b_by = bound(entry_bytes + frows + nbytes(x) + out_bytes,
+                       n_valid * r * 5)
+    rows_out.append(dict(
+        name="cg_matvec_serve_foldin", route="cuda",
+        source="port/repro_torch/csrc/cg_matvec.cu",
+        replaces="src/repro/kernels/cg_matvec.py:66",
+        launches=counts["serve paper-netflix fold-in"]["cg_matvec"],
+        max_abs_err=err_c,
+        ms=graph_ms(torch, lambda: kops.cg_matvec_bucketed(bo, fs, x), 50),
+        plain_ms=graph_ms(torch, plain_cg, 20), bound_ms=b_ms, bound_by=b_by,
+        library_ms=None,
+        eager_ms=time_ms(torch, lambda: kops.cg_matvec_bucketed(bo, fs, x),
+                         50),
+        shape=shape_note))
+    for row in rows_out:
+        log(f"phase 8b: {row['name']:<22} {row['ms']:9.4f} ms  plain "
+            f"{row['plain_ms']:9.4f} ms  bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})  library {row['library_ms']}  "
+            f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]; eager "
+            f"back-to-back wrapper calls {row['eager_ms']:.4f} ms")
+    log("phase 8b: kernel, plain and library times are device times of "
+        "calls captured in one CUDA graph (graph_ms), as the engine replays "
+        "them; eager is the host-bound rate of back-to-back wrapper calls")
+    return counts, rows_out
+
+
+def phase_serve(torch, dump):
+    """Phase 8: 8a and 8b. Returns the launches of each run and the kernel
+    rows of this phase."""
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    log(f"phase 8: {held / 2**30:.2f} GiB allocated by earlier phases at "
+        f"its start")
+    counts = phase_serve_dump(torch, dump)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        more, rows = phase_serve_netflix(torch, tmp, held)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts.update(more)
+    log(f"phase 8: passed; peak memory in phase 8 "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the timing "
+        f"graphs of the plain versions included)")
+    return counts, rows
 
 
 def main():
@@ -1283,12 +1692,19 @@ def main():
     # free phase 3's dataset (phase 6 ran on it) before phase 7
     del run
     torch.cuda.empty_cache()
-    stream_counts, stream_rows = phase_streamed(torch)
-    kernels += stream_rows
-    # phase 8: each kernel's launches in every run of phases 3, 6 and 7,
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        stream_counts, stream_rows, dump = phase_streamed(torch, tmp)
+        kernels += stream_rows
+        torch.cuda.empty_cache()
+        serve_counts, serve_rows = phase_serve(torch, dump)
+        kernels += serve_rows
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # phase 9: each kernel's launches in every run of phases 3, 6, 7 and 8,
     # each counted from zero
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
-             **solver_counts, **stream_counts}
+             **solver_counts, **stream_counts, **serve_counts}
     for row in kernels:
         group = next(g for g in ("tttp", "mttkrp", "cg_matvec")
                      if row["name"].startswith(g))

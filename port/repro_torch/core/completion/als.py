@@ -35,6 +35,8 @@ from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops as kops
 
 MATVEC_PATHS = ("fused", "tttp_mttkrp")
+# the reference's planner candidates for the Gram matvec, not ported yet
+PLANNER_MATVEC_PATHS = ("auto", "sliced", "dense")
 
 
 def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
@@ -52,24 +54,33 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
     if h_slices > 1:
         return _sliced_matvec(omega, factors, mode, x, lam, ctx, h_slices,
                               block_rows)
+    return bucket_gram_matvec(omega.row_buckets(mode, block_rows), factors,
+                              x, lam, ctx, matvec_path)
+
+
+def bucket_gram_matvec(buckets, factors: Sequence[torch.Tensor],
+                       x: torch.Tensor, lam: float, ctx: AxisCtx = LOCAL,
+                       matvec_path: str = "fused") -> torch.Tensor:
+    """:func:`gram_matvec` over a bucket view of Ω (``RowBlockBuckets``,
+    its values the weights ω) along ``buckets.mode``."""
+    mode = buckets.mode
+    num_rows = buckets.shape[mode]
     if matvec_path == "fused":
-        buckets = omega.row_buckets(mode, block_rows)
-        y = kops.cg_matvec_bucketed(buckets, factors, x,
-                                    num_rows=omega.shape[mode])
-        return ctx.psum_data(y) + lam * x
-    if matvec_path == "tttp_mttkrp":
-        # both halves over Ω's cached bucket view: z comes out in bucket
-        # order and feeds the MTTKRP as that view's values, so nothing is
-        # gathered through the bucket pattern per call
-        buckets = omega.row_buckets(mode, block_rows)
+        y = kops.cg_matvec_bucketed(buckets, factors, x, num_rows=num_rows)
+    elif matvec_path == "tttp_mttkrp":
+        # both halves over the bucket view: z comes out in bucket order and
+        # feeds the MTTKRP as that view's values, so nothing is gathered
+        # through the bucket pattern per call
         fs = list(factors)
         fs[mode] = x
         # z_n = ω_n Σ_s Π a_ds · x_is
         z = ctx.psum_model(kops.tttp_bucket_values(buckets, fs))
         fs[mode] = None
         y = kops.mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
-                                 num_rows=omega.shape[mode])
-        return ctx.psum_data(y) + lam * x
+                                 num_rows=num_rows)
+    else:
+        raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
+    return ctx.psum_data(y) + lam * x
 
 
 def _sliced_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],

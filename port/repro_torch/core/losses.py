@@ -21,6 +21,12 @@ from typing import Callable
 
 import torch
 
+# clamp of the model value before exp() where a log-link model is read as a
+# rate: the held-out metrics (``data.streaming.heldout_metrics``) and the
+# served predictions (``serve.model.apply_link``) share it, so a served
+# score equals what the fit's held-out metrics evaluated
+LOG_CLIP = 30.0
+
 
 @dataclasses.dataclass(frozen=True)
 class Loss:

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.core.losses import LOG_CLIP
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
 from repro_torch.core.utils import round_up
@@ -554,10 +555,11 @@ def heldout_metrics(test_st: SparseTensor, factors,
     SparseTensor (masked; padding does not contribute). ``link="log"``
     evaluates in rate space (the model parameterizes log-rates, e.g. the
     ``poisson_log`` loss): predictions are exp(model), the model clipped to
-    ±30 first. The model values come from the TTTP kernel on the card."""
+    ±``LOG_CLIP`` first. The model values come from the TTTP kernel on the
+    card."""
     model = multilinear_values(test_st, list(factors))
     if link == "log":
-        model = torch.exp(torch.clamp(model, -30.0, 30.0))
+        model = torch.exp(torch.clamp(model, -LOG_CLIP, LOG_CLIP))
     elif link != "identity":
         raise ValueError(f"unknown link {link!r}")
     t = test_st.values

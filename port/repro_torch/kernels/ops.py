@@ -14,11 +14,16 @@ themselves, so those pads are not carried over.
 
 Each kernel module counts its launches in a plain integer ``launches``;
 :func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
+A wrapper called while a CUDA graph captures launches nothing: the graph
+launches its kernels at each replay. :func:`recorded_launches` takes such
+calls back out of the counts and hands them to the caller, which adds them
+at every replay with :func:`add_launches`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Optional, Sequence
+from typing import Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -38,6 +43,28 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel name -> launches) to the counts: what one
+    replay of a captured graph launched."""
+    for name, n in counts.items():
+        _MODULES[name].launches += n
+
+
+@contextlib.contextmanager
+def recorded_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA-graph capture: on exit the counts are what they were on
+    entry, and the dict yielded holds the launches the wrappers recorded
+    inside, which the graph makes at each replay."""
+    before = launch_counts()
+    held: Dict[str, int] = {}
+    try:
+        yield held
+    finally:
+        for name, n in launch_counts().items():
+            held[name] = n - before[name]
+            _MODULES[name].launches = before[name]
 
 
 def _on_card(t: torch.Tensor) -> bool:

@@ -51,7 +51,8 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import interop
 from repro_torch.core import losses as LOSS
 from repro_torch.core.completion import GGNState, make_step
-from repro_torch.core.completion.als import MATVEC_PATHS
+from repro_torch.core.completion.als import (MATVEC_PATHS,
+                                             PLANNER_MATVEC_PATHS)
 from repro_torch.core.completion.gcp import gcp_loss
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
@@ -61,8 +62,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.runtime import RestartableLoop
 
 ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
-# the reference's planner candidates for the Gram matvec, not ported yet
-PLANNER_MATVEC_PATHS = ("auto", "sliced", "dense")
 
 
 def build_parser() -> argparse.ArgumentParser:

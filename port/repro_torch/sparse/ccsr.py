@@ -1,9 +1,12 @@
-"""CCSR row-block bucket views of one mode of a sparse tensor.
+"""CCSR views of one mode of a sparse tensor: the paper's doubly compressed
+row view and the row-block buckets the kernels take.
 
-``RowBlockBuckets`` groups the nonzeros, sorted by the bucketed mode, into
-fixed-capacity buckets of ``block_rows`` consecutive output rows. The
-bucketed MTTKRP and fused CG-matvec kernels give each bucket to one CTA,
-which owns those output rows and so needs no global atomics.
+``CCSRView`` (``build_ccsr``) is CSR over the nonzero rows only, with a map
+from compressed to original rows: Θ(m) storage for m nonzeros, never
+Θ(rows). ``RowBlockBuckets`` groups the nonzeros, sorted by the bucketed
+mode, into fixed-capacity buckets of ``block_rows`` consecutive output
+rows. The bucketed MTTKRP and fused CG-matvec kernels give each bucket to
+one CTA, which owns those output rows and so needs no global atomics.
 
 The pattern (``sel``, ``indices``, ``local_row``, ``valid``) depends only on
 Ω and is built once at ingest; a tensor's bucket values are gathered through
@@ -23,6 +26,57 @@ import torch
 
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.utils import cdiv, round_up
+
+
+@dataclasses.dataclass
+class CCSRView:
+    """Doubly compressed view over a mode of a sorted SparseTensor.
+
+    ``row_ids[c]`` is the original row of compressed row ``c`` (padded with
+    ``num_rows``); the entries of compressed row ``c`` occupy the slice
+    ``row_ptr[c]:row_ptr[c+1]`` of the sorted COO arrays."""
+
+    row_ids: torch.Tensor   # (rows_cap,) int32, padded with num_rows
+    row_ptr: torch.Tensor   # (rows_cap + 1,) int32
+    num_rows: int           # original (uncompressed) number of rows
+    nnz_rows: torch.Tensor  # () int32: the number of nonzero rows
+
+    @property
+    def rows_cap(self) -> int:
+        return self.row_ids.shape[0]
+
+
+def build_ccsr(st: SparseTensor, mode: int,
+               rows_cap: Optional[int] = None) -> CCSRView:
+    """CCSR view of ``mode``; ``st`` must be sorted by that mode.
+    ``rows_cap`` defaults to ``min(cap, num_rows)``, the hypersparse Θ(m)
+    bound; compressed rows past it are dropped. No host synchronisation."""
+    if st.sorted_mode != mode:
+        raise ValueError(f"SparseTensor must be sorted by mode {mode} "
+                         f"(got sorted_mode={st.sorted_mode})")
+    num_rows = st.shape[mode]
+    if rows_cap is None:
+        rows_cap = min(st.cap, num_rows)
+    dev = st.indices.device
+    rows = torch.where(st.mask, st.indices[:, mode], num_rows)
+    prev = torch.cat([torch.full((1,), -1, dtype=rows.dtype, device=dev),
+                      rows[:-1]])
+    is_start = (rows != prev) & st.mask
+    crow = torch.cumsum(is_start, 0) - 1       # compressed row of each entry
+    nnz_rows = is_start.sum().to(torch.int32)
+    # the starting rows land in their compressed slots; everything else (and
+    # a start past rows_cap) in one spare slot that is cut off
+    slot = torch.where(is_start, torch.clamp(crow, max=rows_cap), rows_cap)
+    row_ids = torch.full((rows_cap + 1,), num_rows, dtype=torch.int32,
+                         device=dev)
+    row_ids.scatter_(0, slot, rows.to(torch.int32))
+    seg = torch.where(st.mask, torch.clamp(crow, max=rows_cap + 1),
+                      rows_cap + 1)
+    counts = torch.zeros(rows_cap + 2, dtype=torch.int32, device=dev)
+    counts.index_add_(0, seg, st.mask.to(torch.int32))
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         torch.cumsum(counts[:rows_cap], 0).to(torch.int32)])
+    return CCSRView(row_ids[:rows_cap], row_ptr, num_rows, nnz_rows)
 
 
 @dataclasses.dataclass
@@ -159,3 +213,13 @@ class IncrementalBucketBuilder:
         the streamed capacity."""
         return bucket_pattern(st, mode, self.block_rows,
                               capacity=self.capacity(mode))
+
+
+def bucketize(st: SparseTensor, mode: int, block_rows: int,
+              capacity: Optional[int] = None,
+              capacity_multiple: int = 8) -> RowBlockBuckets:
+    """One-shot bucket view: pattern build and value gather (see
+    :func:`bucket_pattern`; ``SparseTensor.row_buckets`` caches the pattern
+    across value updates)."""
+    return bucket_pattern(st, mode, block_rows, capacity,
+                          capacity_multiple).gather(st)

@@ -426,3 +426,107 @@ def test_span_fences_card_work_and_is_a_noop_under_graph_capture(dev):
     finally:
         obs.disable()
         obs.get_registry().reset()
+
+
+# ---------------------------------------------------------------------------
+# serving: the engine's CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _serve_case(seed, shape, r, users, nnz):
+    """numpy factors, score queries, top-k fixed indices and histories."""
+    rng = np.random.default_rng(seed)
+    arrays = [(rng.standard_normal((s, r)) / np.sqrt(r)).astype(np.float32)
+              for s in shape]
+    queries = np.stack([rng.integers(0, s, 300) for s in shape], 1)
+    fixed = {0: rng.integers(0, shape[0], 40), 2: rng.integers(0, shape[2],
+                                                               40)}
+    hists = [(np.stack([rng.integers(0, shape[d], nnz) for d in (1, 2)], 1),
+              rng.standard_normal(nnz).astype(np.float32))
+             for _ in range(users)]
+    return arrays, queries.astype(np.int32), fixed, hists
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [10, 32])
+def test_serve_engine_on_card_matches_cpu(dev, r):
+    """All three endpoints through captured graphs against the eager CPU
+    engine (plain versions); R = 32 takes the fused body at RMAX 32.
+    Scores rtol 1e-5 (float32 sums in another order), fold-in 1e-4."""
+    from repro_torch import serve
+    arrays, queries, fixed, hists = _serve_case(r, (500, 300, 40), r, 37, 25)
+    cpu = serve.ServeEngine(interop.serving_model_from_numpy(
+        arrays, "log", device="cpu"), max_batch=128, topk_block=64,
+        device="cpu")
+    card = serve.ServeEngine(interop.serving_model_from_numpy(
+        arrays, "log", device=dev), max_batch=128, topk_block=64, device=dev)
+    for _ in range(2):                          # capture, then replay
+        np.testing.assert_allclose(card.score(queries), cpu.score(queries),
+                                   rtol=1e-5, atol=1e-6)
+        cv, ci = card.top_k(fixed, 1, 10)
+        pv, _ = cpu.top_k(fixed, 1, 10)
+        np.testing.assert_allclose(cv, pv, rtol=1e-5, atol=1e-6)
+        # indices held through the scores they select (torch.topk on the
+        # card does not order ties): the float64 score of every returned
+        # item is its returned value
+        full = np.exp(np.clip((arrays[0][fixed[0]].astype(np.float64)
+                               * arrays[2][fixed[2]]) @ arrays[1].T,
+                              -30, 30))
+        np.testing.assert_allclose(np.take_along_axis(full, ci, 1), cv,
+                                   rtol=1e-5, atol=1e-6)
+        assert all(len(set(row)) == 10 for row in ci.tolist())
+        np.testing.assert_allclose(card.fold_in(hists, 0),
+                                   cpu.fold_in(hists, 0), **TOL)
+    # score batches 128, 128, 44: graphs of buckets 128 and 64, replayed
+    # 1 + 3 times; top-k and fold-in one graph each, replayed once
+    stats = card.graph_stats()
+    assert stats["captured"] == 4 and stats["replays"] == 6
+
+
+@pytest.mark.cuda
+def test_graph_replay_equals_eager_call(dev):
+    """A replay over new inputs gives what an eager call on them gives."""
+    from repro_torch import serve
+    from repro_torch.serve import foldin
+    arrays, queries, fixed, hists = _serve_case(1, (400, 200, 30), 32, 20,
+                                                30)
+    model = interop.serving_model_from_numpy(arrays, device=dev)
+    eng = serve.ServeEngine(model, max_batch=64, device=dev)
+    eng.score(queries[:64])
+    eng.fold_in(hists[:10], 0)
+    assert eng.graph_stats()["captured"] == 2
+    got = eng.score(queries[64:128])                     # replay
+    want = serve.model.multilinear_scores(
+        model.factors, torch.from_numpy(queries[64:128]).to(dev))
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=1e-6,
+                               atol=1e-7)
+    rows = eng.fold_in(hists[10:], 0)                    # replay
+    assert eng.graph_stats()["replays"] == 2
+    st = foldin.pack_histories(hists[10:], model.shape, 0, device=dev)
+    eager, _ = foldin.fold_in(st, model.factors, 0)
+    np.testing.assert_allclose(rows, eager.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_replays_count_the_launches_of_eager_calls(dev):
+    """N calls of one bucket count N times the kernel launches of one eager
+    call: the capture counts nothing, each replay what its graph holds."""
+    from repro_torch import serve
+    from repro_torch.serve import foldin
+    arrays, queries, _, hists = _serve_case(2, (300, 200, 30), 32, 16, 20)
+    model = interop.serving_model_from_numpy(arrays, device=dev)
+    st = foldin.pack_histories(hists, model.shape, 0, device=dev)
+    kops.reset_launch_counts()
+    foldin.fold_in(st, model.factors, 0)
+    eager_fold = kops.launch_counts()
+    assert eager_fold == {"tttp": 0, "mttkrp": 1, "cg_matvec": 1 + 128}
+    eng = serve.ServeEngine(model, device=dev)
+    n = 5
+    kops.reset_launch_counts()
+    for _ in range(n):
+        eng.score(queries[:50])
+    assert kops.launch_counts() == {"tttp": n, "mttkrp": 0, "cg_matvec": 0}
+    kops.reset_launch_counts()
+    for _ in range(n):
+        eng.fold_in(hists, 0)
+    assert kops.launch_counts() == {k: n * v for k, v in eager_fold.items()}
+    assert eng.graph_stats()["replays"] == 2 * (n - 1)

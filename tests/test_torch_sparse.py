@@ -231,3 +231,189 @@ def test_port_imports_without_jax_or_repro():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+# ---------------------------------------------------------------------------
+# the rest of the sparse format, bit for bit against the reference
+# ---------------------------------------------------------------------------
+
+from repro.core import utils as jutils  # noqa: E402
+from repro_torch.core import utils  # noqa: E402
+from repro_torch.sparse import ops as sops  # noqa: E402
+
+FMT_SHAPE = (13, 9, 7)
+
+
+def _dyadic_both(seed, dense=None, nnz=90, cap=104):
+    """Both packages' tensors on the same shuffled, padded entries (mode-0
+    rows in the lower half, duplicates possible). The values are multiples
+    of 1/8 in [-4, 4), so every sum of them, and of their squares, is exact
+    in float32: a reduction in any order gives the same bits."""
+    idx, _ = _coo(seed, FMT_SHAPE, nnz, half_mode0=True)
+    rng = np.random.default_rng(seed + 7)
+    vshape = (nnz,) if dense is None else (nnz, dense)
+    vals = (rng.integers(-32, 32, vshape) / 8).astype(np.float32)
+    j = JSparseTensor.from_coo(jnp.asarray(idx), jnp.asarray(vals), FMT_SHAPE,
+                               cap=cap)
+    perm = np.random.default_rng(seed + 1).permutation(cap)
+    j = JSparseTensor(j.indices[perm], j.values[perm], j.valid[perm],
+                      FMT_SHAPE, nnz)
+    t = SparseTensor(*(torch.from_numpy(np.array(a)) for a in
+                       (j.indices, j.values, j.valid)), FMT_SHAPE, nnz)
+    return j, t
+
+
+def _fields(x):
+    """The arrays of a result, in order, as numpy."""
+    if isinstance(x, (SparseTensor, JSparseTensor)):
+        return [x.indices, x.values, x.valid]
+    if isinstance(x, (ccsr.CCSRView, jccsr.CCSRView)):
+        return [x.row_ids, x.row_ptr, x.nnz_rows]
+    if isinstance(x, (ccsr.RowBlockBuckets, jccsr.RowBlockBuckets)):
+        return [x.values, x.indices, x.local_row, x.valid]
+    return [x]
+
+
+def _case_transpose(j, t):
+    return t.transpose((2, 0, 1)), j.transpose((2, 0, 1))
+
+
+def _case_reshape(j, t):
+    return t.reshape((9, 13, 7)), j.reshape((9, 13, 7))
+
+
+def _case_reshape_flat(j, t):
+    return t.reshape((13 * 9 * 7,)), j.reshape((13 * 9 * 7,))
+
+
+def _case_linearize(j, t):
+    return (utils.linearize(t.indices, FMT_SHAPE),
+            jutils.linearize(j.indices, FMT_SHAPE))
+
+
+def _case_delinearize(j, t):
+    lin = np.arange(0, 13 * 9 * 7, 5)
+    return (utils.delinearize(torch.from_numpy(lin), FMT_SHAPE),
+            jutils.delinearize(jnp.asarray(lin), FMT_SHAPE))
+
+
+def _case_lex_sort_perm(j, t):
+    return (utils.lex_sort_perm(t.indices, t.valid, (2, 0, 1)),
+            jutils.lex_sort_perm(j.indices, j.valid, (2, 0, 1)))
+
+
+def _case_rows_equal(j, t):
+    other = t.indices.flip(0)
+    return (utils.rows_equal(t.indices, other),
+            jutils.rows_equal(j.indices, jnp.asarray(other.numpy())))
+
+
+FMT_CASES = {
+    "dense_dim": lambda j, t: (t.dense_dim, j.dense_dim),
+    "count_valid": lambda j, t: (t.count_valid(), j.count_valid()),
+    "astype": lambda j, t: (t.astype(torch.float64),
+                            j.astype(jnp.float32)),
+    "transpose": _case_transpose,
+    "reshape": _case_reshape,
+    "reshape_flat": _case_reshape_flat,
+    "scale": lambda j, t: (t.scale(0.5), j.scale(0.5)),
+    "add": lambda j, t: (t.add(t.scale(2.0)), j.add(j.scale(2.0))),
+    "reduce_mode": lambda j, t: (t.reduce_mode(1), j.reduce_mode(1)),
+    "reduce_mode_cut": lambda j, t: (t.reduce_mode(0, 4),
+                                     j.reduce_mode(0, 4)),
+    "sum": lambda j, t: (t.sum(), j.sum()),
+    "norm": lambda j, t: (t.norm(), j.norm()),
+    "linearize": _case_linearize,
+    "delinearize": _case_delinearize,
+    "lex_sort_perm": _case_lex_sort_perm,
+    "rows_equal": _case_rows_equal,
+    "global_norm": lambda j, t: (
+        utils.global_norm({"v": t.values, "s": [t.values[:5], None]}),
+        jutils.global_norm({"v": j.values, "s": [j.values[:5], None]})),
+    "param_count": lambda j, t: (
+        utils.param_count({"v": t.values, "s": (t.indices,)}),
+        jutils.param_count({"v": j.values, "s": (j.indices,)})),
+    "bucketize": lambda j, t: (ccsr.bucketize(t, 1, 4),
+                               jccsr.bucketize(j, 1, 4)),
+    "build_ccsr": lambda j, t: (ccsr.build_ccsr(t.sort_by_mode(0), 0),
+                                jccsr.build_ccsr(j.sort_by_mode(0), 0)),
+    "build_ccsr_rows_cap": lambda j, t: (
+        ccsr.build_ccsr(t.sort_by_mode(2), 2, rows_cap=4),
+        jccsr.build_ccsr(j.sort_by_mode(2), 2, rows_cap=4)),
+    "from_coo_pad_multiple": lambda j, t: (
+        SparseTensor.from_coo(t.indices[:50], t.values[:50], FMT_SHAPE,
+                              pad_multiple=16),
+        JSparseTensor.from_coo(j.indices[:50], j.values[:50], FMT_SHAPE,
+                               pad_multiple=16)),
+}
+# the same functions on values with a trailing dense axis
+DENSE_CASES = ("dense_dim", "with_values", "todense", "scale", "add",
+               "reduce_mode", "sum", "norm", "transpose")
+FMT_CASES["with_values"] = lambda j, t: (t.with_values(t.values * 3),
+                                         j.with_values(j.values * 3))
+FMT_CASES["todense"] = lambda j, t: (t.todense(), j.todense())
+
+
+@pytest.mark.parametrize("name,dense", [(n, None) for n in FMT_CASES]
+                         + [(n, 3) for n in DENSE_CASES])
+def test_sparse_format_bit_identical(name, dense):
+    j, t = _dyadic_both(11, dense)
+    got, want = FMT_CASES[name](j, t)
+    if name == "astype":    # the cast itself, then back to float32
+        assert got.values.dtype == torch.float64
+        got = got.astype(torch.float32)
+    if isinstance(got, SparseTensor):
+        assert got.shape == want.shape and got.nnz == want.nnz
+        assert got.sorted_mode == want.sorted_mode
+        assert got.nnz_rows == want.nnz_rows
+    if isinstance(got, ccsr.CCSRView):
+        assert (got.num_rows, got.rows_cap) == (want.num_rows, want.rows_cap)
+    gf, wf = _fields(got), _fields(want)
+    assert len(gf) == len(wf)
+    for g, w in zip(gf, wf):
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        w = np.asarray(w)
+        assert g.shape == w.shape, name
+        if g.dtype.kind == "f":
+            assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_transpose_keeps_nnz_rows_and_reshape_refuses_size():
+    j, t = _dyadic_both(12)
+    t.nnz_rows = j.nnz_rows = (5, 6, 7)
+    assert t.transpose((1, 2, 0)).nnz_rows == j.transpose((1, 2, 0)).nnz_rows
+    with pytest.raises(ValueError, match="size mismatch"):
+        t.reshape((5, 5))
+    with pytest.raises(ValueError, match="shapes"):
+        t.add(t.transpose((1, 0, 2)))
+    with pytest.raises(ValueError, match="sorted"):
+        ccsr.build_ccsr(t, 0)
+    with pytest.raises(ValueError, match="dense axis"):
+        t.with_values(torch.ones(t.cap, 2)).row_buckets(0, 4)
+    with pytest.raises(ValueError, match="overflows int64"):
+        utils.linearize(t.indices, (2 ** 40, 2 ** 40))
+
+
+def test_random_statistics():
+    """The reference's random tensor comes from jax.random, which torch
+    cannot reproduce: shape, range and distinct-index statistics only."""
+    shape, nnz = (50, 40, 30), 6000
+    t = SparseTensor.random(torch.Generator().manual_seed(0), shape, nnz,
+                            cap=6008)
+    j = JSparseTensor.random(jax.random.PRNGKey(0), shape, nnz, cap=6008)
+    assert t.cap == j.cap == 6008 and t.nnz == j.nnz == nnz
+    assert t.indices.dtype == torch.int32 and t.values.dtype == torch.float32
+    assert int(t.count_valid()) == int(j.count_valid()) == nnz
+    v = t.values[:nnz].numpy()
+    assert -1.0 <= v.min() and v.max() < 1.0 and abs(v.mean()) < 0.05
+    assert not t.values[nnz:].any()
+    for d, s in enumerate(shape):
+        col, jcol = t.indices[:nnz, d].numpy(), np.asarray(j.indices[:nnz, d])
+        assert col.min() >= 0 and col.max() < s
+        # both draw uniformly: the same share of the rows is hit
+        assert abs(len(np.unique(col)) - len(np.unique(jcol))) <= 0.1 * s
+    lin = utils.linearize(t.indices[:nnz], shape).numpy()
+    jlin = np.asarray(jutils.linearize(j.indices[:nnz], shape))
+    # duplicates ~ nnz^2 / (2 cells) = 300 in both
+    assert abs(len(np.unique(lin)) - len(np.unique(jlin))) < 60
