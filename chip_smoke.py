@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-nine phases and stops with a non-zero exit at the first failure:
+ten phases and stops with a non-zero exit at the first failure (9a-9d run
+right after phase 6, on phase 3's tensor before it is freed, 9e after
+phase 8, on 7e's factors):
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each kernel's registers and spills;
@@ -123,8 +125,35 @@ nine phases and stops with a non-zero exit at the first failure:
       tolerance) and timed beside its bound (the bytes of the entries and
       of the distinct factor rows they gather); print phase 8's peak
       device memory;
-9. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3, 6, 7 and 8 under
+9. drive the planner (``repro_torch.planner``, the ``ctf`` facade), each
+   run with the launch counts zeroed before and read after:
+   a. one ALS sweep each with ``--matvec-path auto`` and ``sliced`` from
+      phase 3's initial factors: auto must launch what a fused sweep does
+      (3 MTTKRPs and 63 fused matvecs, 2 RMSE TTTPs) and match phase 3's
+      first fused sweep at rtol 1e-4 (atol 1e-4 of the largest entry);
+      sliced (H = 2 at R = 10) 2 TTTPs and 2 MTTKRPs per matvec, at rtol
+      1e-3 as phase 3's ``tttp_mttkrp`` sweep;
+   b. for classic MTTKRP, TTTP, the Gram matvec and the mode reduction on
+      phase 3's tensor, every candidate whose estimated memory traffic is
+      at most 2^32 words (16 GiB, the card's memory sets the cut) forced
+      through ``ctf.einsum(path=)``, held at phase 4's tolerance against
+      a plain result on the same inputs (MTTKRP: ``sparse.ops.mttkrp``;
+      the reduction: ``index_add_`` of the masked values) or, for TTTP and
+      the Gram matvec, against the default path (phase 4 holds their
+      kernels against plain versions), and timed by CUDA events beside
+      the cost model's predicted time; each forced call's ``PlanRecord`` (predicted beside
+      fenced wall time) printed;
+   c. the same at 7e's dims (2000 x 1500 x 1000, 2 M nonzeros), where the
+      dense, KR-first and T-first candidates fit, plus TTM; then the rates
+      ``cost.calibrate`` fits to the 9b and 9c samples, printed and not
+      installed;
+   d. one ``autotune=True`` plan of the Gram matvec at phase 3's size: its
+      fenced timings and winner;
+   e. ``launch.serve_complete --score-path all_at_once --matvec-path
+      sliced --verify`` on 7e's factors: ``verify OK``, TTTP and the
+      MTTKRP launched, no fused matvec;
+10. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3, 6, 7, 8 and 9 under
    ``path_launches``), the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 """
@@ -1669,6 +1698,249 @@ def phase_serve(torch, dump):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9
+# ---------------------------------------------------------------------------
+
+# forced planner candidates whose estimated memory traffic is at most this
+# many words (16 GiB of float32, a fifth of the card's 80 GB); at the main
+# path's size it leaves out dense, kr_first and t_first (whose sort traffic
+# the cost model prices at 3.4e10 words)
+PLAN_MEM_WORDS = 2 ** 32
+# 9c: every candidate (dense included) at phase 7e's dims
+SMALL_DIMS = (2000, 1500, 1000)
+SMALL_NNZ = 2_000_000
+PLAN_REPS = 3
+
+
+def planner_sweep(torch, run, path):
+    """One ALS sweep of phase 3's problem from its initial factors with
+    ``--matvec-path path``; returns the run and its launches."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import complete
+    args = complete.build_parser().parse_args(
+        ["--algorithm", "als"] + main_argv() + ["--matvec-path", path])
+    args.sweeps = 1
+    kops.reset_launch_counts()
+    out = complete.run_solver(args, run.dataset, run.init_factors)
+    torch.cuda.synchronize()
+    return out, kops.launch_counts()
+
+
+def _values(out):
+    """A result's values: a SparseTensor's (TTTP), or the dense tensor."""
+    from repro_torch.core.sparse_tensor import SparseTensor
+    return out.values if isinstance(out, SparseTensor) else out
+
+
+def forced_paths(torch, label, families):
+    """Every candidate of each (family, expr, operands, plain) whose
+    estimated memory is at most ``PLAN_MEM_WORDS``, forced through
+    ``ctf.einsum``: held (phase 4's tolerance) against ``plain()``, a plain
+    PyTorch result on the same inputs independent of the planner, or,
+    where ``plain`` is None, against the default path's output; timed by
+    CUDA events. ``obs`` is on for the one counted call of each candidate,
+    so its ``PlanRecord`` (predicted beside fenced wall time) is kept.
+    Returns the launches of the counted calls and (flops, words, seconds)
+    samples."""
+    import repro_torch.core.api as ctf
+    from repro_torch import obs
+    from repro_torch.kernels import ops as kops
+    counts = {k: 0 for k in kops.launch_counts()}
+    samples = []
+    for family, expr, ops, plain in families:
+        plan = ctf.plan(expr, *ops)
+        want = plain() if plain else _values(ctf.einsum(expr, *ops))
+        torch.cuda.synchronize()
+        skipped = [c.path for c in plan.ranking if c.mem > PLAN_MEM_WORDS]
+        log(f"  {label} {family} {expr}: default {plan.path}, ranking "
+            f"{[c.path for c in plan.ranking]}, left out (estimated memory "
+            f"> 2^32 words): {skipped}; each path held against "
+            f"{'the plain version' if plain else 'the default path'}")
+        for c in plan.ranking:
+            if c.mem > PLAN_MEM_WORDS:
+                continue
+            kops.reset_launch_counts()
+            obs.enable()
+            try:
+                got = _values(ctf.einsum(expr, *ops, path=c.path))
+                torch.cuda.synchronize()
+            finally:
+                obs.disable()
+            for k, n in kops.launch_counts().items():
+                counts[k] += n
+            err = held(torch, f"{family} {c.path}", got, want,
+                       where=f"phase 9 ({label})")
+            del got
+            ms = time_ms(torch, lambda: ctf.einsum(expr, *ops, path=c.path),
+                         PLAN_REPS)
+            samples.append((c.flops, c.mem, ms / 1e3))
+            log(f"    {c.path:12s} {ms:10.3f} ms  predicted "
+                f"{c.seconds * 1e3:10.3f} ms (flops {c.flops:.3e}, words "
+                f"{c.mem:.3e})  max |path - reference| {err:.2e}")
+        del want
+        torch.cuda.empty_cache()
+    plans = obs.get_registry().summary()["plans"]
+    for key, rec in sorted(plans.items()):
+        log(f"    PlanRecord {key}: predicted "
+            f"{rec['predicted']['seconds'] * 1e3:.3f} ms, fenced wall "
+            f"{rec['measured']['mean_s'] * 1e3:.3f} ms "
+            f"(x{rec['measured_over_predicted']:.2f})")
+    obs.get_registry().reset()
+    return counts, samples
+
+
+def plain_mttkrp(st, fs):
+    """The plain mode-0 MTTKRP of ``st`` (``sparse.ops.mttkrp``: gather,
+    product, ``index_add_``), deferred."""
+    from repro_torch.sparse import ops as sops
+    return lambda: sops.mttkrp(st, [None, fs[1], fs[2]], 0)
+
+
+def plain_reduce(torch, st):
+    """The plain ``ijk->i`` of ``st``: its masked values summed by
+    ``index_add_`` over int64 row indices, deferred."""
+    def run():
+        out = torch.zeros(st.shape[0], dtype=st.values.dtype,
+                          device=st.values.device)
+        return out.index_add_(0, st.indices[:, 0].long(),
+                              st.masked_values())
+    return run
+
+
+def phase_planner(torch, run):
+    """Phase 9a-9d on phase 3's tensor: ALS with the planner's matvec
+    paths, every forced candidate at full size, the dense and pairwise
+    candidates at 7e's dims, and one autotuned plan. Returns the launches
+    of each run."""
+    from repro_torch import planner
+    from repro_torch.data import synthetic
+    from repro_torch.planner import cost as pcost
+    counts = {}
+    fused_ms = run.history[0][1] * 1e3
+    # one sweep of phase 3's fused run, and the RMSE before and after it
+    per_sweep = dict(run.sweep_launches[0], tttp=2)
+    log("phase 9a: ALS sweeps through the planner's Gram matvec "
+        "(--matvec-path auto, sliced), from phase 3's initial factors")
+    auto, counts["planner als auto"] = planner_sweep(torch, run, "auto")
+    if counts["planner als auto"] != per_sweep:
+        raise SystemExit(f"phase 9a: --matvec-path auto launched "
+                         f"{counts['planner als auto']}, the fused sweep "
+                         f"{per_sweep}")
+    h = pcost._sliced_h(RANK)
+    matvecs = 3 * (1 + CG_ITERS)
+    sliced, counts["planner als sliced"] = planner_sweep(torch, run,
+                                                         "sliced")
+    want = {"tttp": 2 + h * matvecs, "mttkrp": 3 + h * matvecs,
+            "cg_matvec": 0}
+    if counts["planner als sliced"] != want:
+        raise SystemExit(f"phase 9a: --matvec-path sliced launched "
+                         f"{counts['planner als sliced']}, expected {want}")
+    for name, other, rtol in (("auto", auto, 1e-4), ("sliced", sliced, 1e-3)):
+        for d, (a, b) in enumerate(zip(other.factors, run.sweep_factors[0])):
+            scale = float(b.abs().max())
+            torch.testing.assert_close(
+                a, b, rtol=rtol, atol=rtol * scale,
+                msg=lambda m: f"phase 9a: factor {d}, {name} vs fused: {m}")
+            log(f"  {name} factor {d}: max |{name} - fused| = "
+                f"{float((a - b).abs().max()):.3e}")
+    log(f"  sweep ms: fused {fused_ms:.1f} (phase 3), auto "
+        f"{auto.history[0][1] * 1e3:.1f}, sliced "
+        f"{sliced.history[0][1] * 1e3:.1f} (H = {h}); launches auto "
+        f"{counts['planner als auto']}, sliced {counts['planner als sliced']}")
+    del auto, sliced
+
+    st, omega = run.dataset.tensor, run.dataset.omega
+    fs = run.factors
+    log(f"phase 9b: every forced candidate at the main path's size "
+        f"(m = {NNZ}, R = {RANK}) within {PLAN_MEM_WORDS} words; rates "
+        f"{pcost.rates()} (H100 SXM data sheet)")
+    big = [("mttkrp", "ijk,jr,kr->ir", (st, fs[1], fs[2]),
+            plain_mttkrp(st, fs)),
+           ("tttp", "ijk,ir,jr,kr->ijk", (st, *fs), None),
+           ("cg_matvec", "ijk,jr,kr,iy,jy,ky->ir",
+            (omega, fs[1], fs[2], fs[0], fs[1], fs[2]), None),
+           ("reduce", "ijk->i", (st,), plain_reduce(torch, st))]
+    counts["planner forced 80M"], samples = forced_paths(torch, "80M", big)
+
+    log(f"phase 9c: every candidate at phase 7e's dims {SMALL_DIMS}, "
+        f"nnz {SMALL_NNZ} (dense, kr_first, t_first and TTM included)")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    small = synthetic.function_tensor(SMALL_DIMS, SMALL_NNZ, gen)
+    sw = small.with_values(small.valid.to(small.values.dtype))
+    g = [torch.randn(n, RANK, generator=gen, device="cuda") / RANK ** 0.5
+         for n in SMALL_DIMS]
+    little = [("mttkrp", "ijk,jr,kr->ir", (small, g[1], g[2]),
+               plain_mttkrp(small, g)),
+              ("tttp", "ijk,ir,jr,kr->ijk", (small, *g), None),
+              ("cg_matvec", "ijk,jr,kr,iy,jy,ky->ir",
+               (sw, g[1], g[2], g[0], g[1], g[2]), None),
+              ("reduce", "ijk->i", (small,), plain_reduce(torch, small)),
+              ("ttm", "ijk,kr->ijr", (small, g[2]), None)]
+    counts["planner forced 7e dims"], more = forced_paths(torch, "7e dims",
+                                                          little)
+    samples += more
+    del small, sw, g
+    torch.cuda.empty_cache()
+    fitted = pcost.calibrate(samples)
+    pcost.reset_rates()
+    log(f"  rates fitted by cost.calibrate to the {len(samples)} samples "
+        f"of 9b and 9c (printed, not installed): flop "
+        f"{fitted['flop']:.4g} FMA/s, mem {fitted['mem']:.4g} words/s "
+        f"(data sheet {pcost.FLOP_RATE:.4g}, {pcost.MEM_RATE:.4g})")
+
+    log("phase 9d: one autotuned plan (the Gram matvec at the main path's "
+        "size)")
+    from repro_torch.kernels import ops as kops
+    kops.reset_launch_counts()
+    plan = planner.plan_contraction(
+        "ijk,jr,kr,iy,jy,ky->ir", (omega, fs[1], fs[2], fs[0], fs[1], fs[2]),
+        autotune=True)
+    torch.cuda.synchronize()
+    counts["planner autotune"] = kops.launch_counts()
+    log(f"  timings (fenced best of 3) "
+        f"{[(p, round(t * 1e3, 3)) for p, t in plan.timings]} ms, winner "
+        f"{plan.path}, cost model's pick {plan.ranking[0].path}")
+    if not plan.autotuned or plan.path not in plan.candidates:
+        raise SystemExit(f"phase 9d: autotune gave {plan}")
+    torch.cuda.empty_cache()
+    log(f"phase 9a-9d: passed; peak memory so far "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return counts
+
+
+def phase_planner_serve(torch, dump):
+    """Phase 9e: ``serve_complete --score-path all_at_once --matvec-path
+    sliced --verify`` on 7e's factors: scoring through the planner's TTTP,
+    fold-in on the planner's H-sliced matvec (TTTP then MTTKRP, no fused
+    matvec)."""
+    import contextlib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import serve_complete
+    argv = ["--factors", dump, "--num-queries", "100000", "--batch-size",
+            str(SERVE_BATCH), "--topk", str(TOPK), "--foldin-users", "32",
+            "--score-path", "all_at_once", "--matvec-path", "sliced",
+            "--verify", "--device", "cuda"]
+    log(f"phase 9e: launch.serve_complete {' '.join(argv[2:])}")
+    tee = Tee(sys.stdout)
+    kops.reset_launch_counts()
+    try:
+        with contextlib.redirect_stdout(tee):
+            serve_complete.main(argv)
+    except SystemExit as exc:
+        raise SystemExit(f"phase 9e: serve_complete exited {exc.code}")
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    if "verify OK" not in "".join(tee.parts).splitlines():
+        raise SystemExit("phase 9e: serve_complete did not print verify OK")
+    if not launches["tttp"] or not launches["mttkrp"] or \
+            launches["cg_matvec"]:
+        raise SystemExit(f"phase 9e: launches {launches}: the sliced "
+                         f"fold-in runs TTTP and the MTTKRP, no fused matvec")
+    log(f"  launches {launches}")
+    return {"serve 7e planner": launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1689,7 +1961,9 @@ def main():
         phase_profile(torch, run, path)
     solver_counts, solver_rows = phase_solvers(torch, run)
     kernels += solver_rows
-    # free phase 3's dataset (phase 6 ran on it) before phase 7
+    # phase 9a-9d run on phase 3's dataset too, before it is freed
+    planner_counts = phase_planner(torch, run)
+    # free phase 3's dataset (phases 6 and 9 ran on it) before phase 7
     del run
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1699,12 +1973,14 @@ def main():
         torch.cuda.empty_cache()
         serve_counts, serve_rows = phase_serve(torch, dump)
         kernels += serve_rows
+        planner_counts.update(phase_planner_serve(torch, dump))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # phase 9: each kernel's launches in every run of phases 3, 6, 7 and 8,
-    # each counted from zero
+    # phase 10: each kernel's launches in every run of phases 3, 6, 7, 8
+    # and 9, each counted from zero
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
-             **solver_counts, **stream_counts, **serve_counts}
+             **solver_counts, **stream_counts, **serve_counts,
+             **planner_counts}
     for row in kernels:
         group = next(g for g in ("tttp", "mttkrp", "cg_matvec")
                      if row["name"].startswith(g))

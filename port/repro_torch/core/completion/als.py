@@ -13,7 +13,10 @@ MTTKRP kernel (``"tttp_mttkrp"``), both over Ω's cached bucket view. Both
 take any rank: ``kernels.ops.cg_matvec_bucketed`` runs R above the fused
 kernel's width as TTTP then MTTKRP. ``h_slices > 1`` is the paper's
 H-sliced schedule (the reference's route when no ``matvec_path`` is given):
-both halves over Ω's bucket view, R cut into column slices of ⌈R/H⌉.
+both halves over Ω's bucket view, R cut into column slices of ⌈R/H⌉. The
+planner's candidates (``auto``, ``sliced``, ``dense``) run the matvec
+through ``planner.planned_cg_matvec``, and ``mttkrp_path`` forces the
+MTTKRP contractions onto a planner candidate.
 
 CG runs a fixed ``max_iters`` iterations with no host synchronisation.
 The reference stops as soon as every row has converged; here converged rows
@@ -23,20 +26,21 @@ iterations in which some row was still active stays on the device.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 from typing import List, Optional, Sequence
 
 import torch
 
 from repro_torch.core.distributed import (LOCAL, AxisCtx, mttkrp_ctx,
-                                          no_planner_path, rowdot_ctx)
+                                          planner_config, rowdot_ctx)
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops as kops
 
-MATVEC_PATHS = ("fused", "tttp_mttkrp")
-# the reference's planner candidates for the Gram matvec, not ported yet
-PLANNER_MATVEC_PATHS = ("auto", "sliced", "dense")
+# the Gram matvec's routes: the two direct ones, and the planner's
+# candidates (``auto``: the §5.3 cost model picks; at the solvers' shapes it
+# picks ``fused``)
+DIRECT_MATVEC_PATHS = ("fused", "tttp_mttkrp")
+MATVEC_PATHS = ("auto",) + DIRECT_MATVEC_PATHS + ("sliced", "dense")
 
 
 def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
@@ -47,15 +51,30 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
                 mttkrp_path: Optional[str] = None) -> torch.Tensor:
     """(G_ω + λI) x via the implicit eq.-3 matvec. ``omega.values`` are the
     per-entry weights ω_n: the Ω indicator for plain ALS, the loss
-    curvature for the Gauss-Newton solver (``completion.gauss_newton``)."""
-    no_planner_path(mttkrp_path)
+    curvature for the Gauss-Newton solver (``completion.gauss_newton``).
+
+    ``matvec_path`` ``fused`` and ``tttp_mttkrp`` are the direct routes
+    over Ω's bucket view (``kernels.ops.bucket_matvec``); ``auto``,
+    ``sliced`` and ``dense`` run the whole matvec through the planner's
+    ``cg_matvec`` family (``planner.planned_cg_matvec``), as the
+    reference's ``matvec_path`` does. ``mttkrp_path`` forces the MTTKRP
+    half onto a planner candidate: the matvec then runs as TTTP over the
+    bucket view followed by that MTTKRP, ``h_slices`` column slices on
+    both halves."""
     if matvec_path not in MATVEC_PATHS:
         raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
-    if h_slices > 1:
-        return _sliced_matvec(omega, factors, mode, x, lam, ctx, h_slices,
-                              block_rows)
-    return bucket_gram_matvec(omega.row_buckets(mode, block_rows), factors,
-                              x, lam, ctx, matvec_path)
+    if matvec_path not in DIRECT_MATVEC_PATHS:
+        from repro_torch.planner import planned_cg_matvec
+        y = planned_cg_matvec(
+            omega, list(factors), mode, x,
+            path=None if matvec_path == "auto" else matvec_path, ctx=ctx,
+            config=planner_config(block_rows))
+        return y + lam * x
+    mttkrp = (None if mttkrp_path is None
+              else _planned_mttkrp(mttkrp_path, block_rows))
+    return ctx.psum_data(kops.bucket_matvec(
+        omega.row_buckets(mode, block_rows), factors, x, matvec_path,
+        h_slices, mttkrp=mttkrp)) + lam * x
 
 
 def bucket_gram_matvec(buckets, factors: Sequence[torch.Tensor],
@@ -63,51 +82,17 @@ def bucket_gram_matvec(buckets, factors: Sequence[torch.Tensor],
                        matvec_path: str = "fused") -> torch.Tensor:
     """:func:`gram_matvec` over a bucket view of Ω (``RowBlockBuckets``,
     its values the weights ω) along ``buckets.mode``."""
-    mode = buckets.mode
-    num_rows = buckets.shape[mode]
-    if matvec_path == "fused":
-        y = kops.cg_matvec_bucketed(buckets, factors, x, num_rows=num_rows)
-    elif matvec_path == "tttp_mttkrp":
-        # both halves over the bucket view: z comes out in bucket order and
-        # feeds the MTTKRP as that view's values, so nothing is gathered
-        # through the bucket pattern per call
-        fs = list(factors)
-        fs[mode] = x
-        # z_n = ω_n Σ_s Π a_ds · x_is
-        z = ctx.psum_model(kops.tttp_bucket_values(buckets, fs))
-        fs[mode] = None
-        y = kops.mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
-                                 num_rows=num_rows)
-    else:
-        raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
-    return ctx.psum_data(y) + lam * x
+    return ctx.psum_data(kops.bucket_matvec(buckets, factors, x,
+                                            matvec_path)) + lam * x
 
 
-def _sliced_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
-                   mode: int, x: torch.Tensor, lam: float, ctx: AxisCtx,
-                   h_slices: int, block_rows: int) -> torch.Tensor:
-    """The reference's H-sliced schedule (``rs = ⌈R/H⌉``, so the last slice
-    may be narrower): the TTTP halves of the column slices summed into z,
-    then one MTTKRP per column slice, joined. Both halves run over Ω's
-    cached bucket view, z in bucket order, so nothing is gathered per
-    call."""
-    buckets = omega.row_buckets(mode, block_rows)
-    fs = list(factors)
-    fs[mode] = x
-    r = x.shape[1]
-    rs = -(-r // h_slices)
-    slices = [[None if f is None else f[:, c0:c0 + rs].contiguous()
-               for f in fs] for c0 in range(0, r, rs)]
-    z = None
-    for sl in slices:
-        part = kops.tttp_bucket_values(buckets, sl)
-        z = part if z is None else z + part
-    zb = dataclasses.replace(buckets, values=ctx.psum_model(z))
-    cols = []
-    for sl in slices:
-        sl[mode] = None
-        cols.append(kops.mttkrp_bucketed(zb, sl, num_rows=omega.shape[mode]))
-    return ctx.psum_data(torch.cat(cols, dim=1)) + lam * x
+def _planned_mttkrp(path: str, block_rows: int):
+    """The MTTKRP half of ``kernels.ops.bucket_matvec`` pinned to the
+    planner candidate ``path``, run on the bucket view as it is
+    (``SparseTensor.from_buckets``: no second bucketing)."""
+    from repro_torch.planner import mttkrp_fn
+    mv = mttkrp_fn(path, planner_config(block_rows))
+    return lambda zb, fs: mv(SparseTensor.from_buckets(zb), fs, zb.mode)
 
 
 def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
@@ -159,15 +144,18 @@ def als_update_mode(st: SparseTensor, omega: SparseTensor,
                     cg_tol: float = 1e-4, cg_iters: int = 32,
                     ctx: AxisCtx = LOCAL, h_slices: int = 1,
                     matvec_path: str = "fused",
-                    block_rows: int = 8) -> torch.Tensor:
-    """One ALS factor update by implicit CG: b from the bucketed MTTKRP
-    kernel, then ``cg_iters`` batched CG steps on the eq.-3 matvec."""
+                    block_rows: int = 8,
+                    mttkrp_path: Optional[str] = None) -> torch.Tensor:
+    """One ALS factor update by implicit CG: b from the MTTKRP (the bucketed
+    kernel unless ``mttkrp_path`` forces a planner candidate), then
+    ``cg_iters`` batched CG steps on the eq.-3 matvec."""
     fs = list(factors)
     fs[mode] = None
-    b = mttkrp_ctx(st, fs, mode, ctx, block_rows)
+    b = mttkrp_ctx(st, fs, mode, ctx, block_rows, path=mttkrp_path)
     mv = functools.partial(gram_matvec, omega, factors, mode, lam=lam,
                            ctx=ctx, h_slices=h_slices,
-                           matvec_path=matvec_path, block_rows=block_rows)
+                           matvec_path=matvec_path, block_rows=block_rows,
+                           mttkrp_path=mttkrp_path)
     x, _ = batched_cg(mv, b, factors[mode], tol=cg_tol, max_iters=cg_iters,
                       ctx=ctx)
     return x
@@ -178,12 +166,15 @@ def als_sweep(st: SparseTensor, omega: SparseTensor,
               cg_tol: float = 1e-4, cg_iters: int = 32,
               ctx: AxisCtx = LOCAL, h_slices: int = 1,
               matvec_path: str = "fused",
-              block_rows: int = 8) -> List[torch.Tensor]:
-    """Full ALS sweep (all modes, in order)."""
+              block_rows: int = 8,
+              mttkrp_path: Optional[str] = None) -> List[torch.Tensor]:
+    """Full ALS sweep (all modes, in order). ``mttkrp_path`` opts the
+    MTTKRP contractions into planner dispatch, as in the reference."""
     fs = list(factors)
     for d in range(st.ndim):
         fs[d] = als_update_mode(st, omega, fs, d, lam, cg_tol, cg_iters,
-                                ctx, h_slices, matvec_path, block_rows)
+                                ctx, h_slices, matvec_path, block_rows,
+                                mttkrp_path)
     return fs
 
 

@@ -11,9 +11,9 @@ Two implementations, as in the paper:
 
 * ``ccd_sweep`` — gather, product and ``index_add_`` segment sums
   (Listing 5), plain PyTorch as the reference's is plain ``jnp``;
-* ``ccd_sweep_tttp`` — through the TTTP kernel on vector factors (R = 1)
-  and the sparse mode reduction (Listing 6): two TTTP launches per column
-  update.
+* ``ccd_sweep_tttp`` — through the planner's TTTP (the TTTP kernel on
+  vector factors, R = 1) and the planner's sparse mode reduction (Listing
+  6): two TTTP launches per column update.
 
 The reference's loop over columns (``fori_loop``) is a Python loop here.
 Each sweep clones the factors once and writes the new columns into the
@@ -112,7 +112,7 @@ def ccd_sweep_tttp(st: SparseTensor, factors: Sequence[torch.Tensor],
                    rho: torch.Tensor, lam: float, ctx: AxisCtx = LOCAL,
                    tttp_path: Optional[str] = None
                    ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """One CCD++ sweep, TTTP variant (paper Listing 6). ``tttp_path`` would
-    force a planner candidate and is refused until the planner is ported."""
+    """One CCD++ sweep, TTTP variant (paper Listing 6). ``tttp_path`` forces
+    the TTTP contractions onto a planner candidate."""
     update = functools.partial(_ccd_column_update_tttp, path=tttp_path)
     return _ccd_sweep_impl(update, st, factors, rho, lam, ctx)

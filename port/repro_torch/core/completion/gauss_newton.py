@@ -24,8 +24,8 @@ paper's eq.-3 Gram matvec with the curvature ω as weights. One iteration
 
 Every H_dd matvec is :func:`als.gram_matvec` on the curvature tensor
 ``w_st``: on the card the fused CG-matvec kernel with weights ω (or TTTP +
-MTTKRP, by ``matvec_path``), over ``w_st``'s bucket view, which
-``row_buckets`` gathers once per mode and tensor. As in the reference there
+MTTKRP, or a planner candidate, by ``matvec_path``), over ``w_st``'s bucket
+view, which ``row_buckets`` gathers once per mode and tensor. As in the reference there
 is no host synchronisation: the damping and the step α stay 0-d device
 tensors, the line search takes ``argmin`` on the device, accept/reject is
 ``torch.where`` and every solver runs a fixed trip count.

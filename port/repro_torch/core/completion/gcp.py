@@ -50,8 +50,9 @@ def gcp_gradients(st: SparseTensor, factors: Sequence[torch.Tensor],
                   loss: Loss, lam: float, ctx: AxisCtx = LOCAL,
                   mttkrp_path: Optional[str] = None,
                   block_rows: int = 8) -> List[torch.Tensor]:
-    """Per-factor gradients: one TTTP for the model values, one bucketed
-    MTTKRP per mode on the loss gradient."""
+    """Per-factor gradients: one TTTP for the model values, one MTTKRP per
+    mode on the loss gradient (the bucketed kernel unless ``mttkrp_path``
+    forces a planner candidate)."""
     model = ctx.psum_model(multilinear_values(st, list(factors)))
     g_st = st.with_values(torch.where(st.mask, loss.grad(st.values, model),
                                       0.0))

@@ -121,6 +121,22 @@ class SparseTensor:
                             dtype=dtype) * (high - low) + low
         return cls.from_coo(indices, values, shape, cap=cap)
 
+    @classmethod
+    def from_buckets(cls, buckets) -> "SparseTensor":
+        """The padded COO of a bucket view's slots (``RowBlockBuckets``,
+        padding slots invalid), in bucket order, with that view cached as
+        its ``row_buckets(buckets.mode, buckets.block_rows)``: what the
+        planner reads runs over the view as it is, gathering nothing."""
+        nb, c, nd = buckets.indices.shape
+        st = cls(buckets.indices.reshape(nb * c, nd),
+                 buckets.values.reshape(nb * c),
+                 buckets.valid.reshape(nb * c), tuple(buckets.shape))
+        st._bucket_cache = {
+            (int(buckets.mode), int(buckets.block_rows)):
+            (st.values, st.values._version, st.valid, st.valid._version,
+             buckets)}
+        return st
+
     # -- transformations ------------------------------------------------------
     def sort_by_mode(self, mode: int) -> "SparseTensor":
         """Sort entries so that ``indices[:, mode]`` is non-decreasing, with

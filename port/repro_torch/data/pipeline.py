@@ -18,16 +18,17 @@ import torch
 
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.data import synthetic
+from repro_torch.planner.config import default_config
 from repro_torch.sparse.ccsr import IncrementalBucketBuilder, bucket_pattern
-
-# the reference's PlannerConfig.block_rows
-DEFAULT_BLOCK_ROWS = 8
 
 
 class CompletionDataset:
 
     def __init__(self, st: SparseTensor, generator: torch.Generator,
-                 block_rows: int = DEFAULT_BLOCK_ROWS):
+                 block_rows: Optional[int] = None):
+        """``block_rows`` defaults to the planner config's, so ingest and
+        planner dispatch read one bucket view."""
+        block_rows = block_rows or default_config().block_rows
         tensor = synthetic.shuffle_and_pad(st, generator, num_shards=1)
         self._finish(tensor, block_rows, num_shards=1, stats=None)
 
@@ -48,7 +49,7 @@ class CompletionDataset:
         from repro_torch.data import streaming
         if mesh is not None:
             raise ValueError("mesh: the port runs on one device so far")
-        block_rows = block_rows or DEFAULT_BLOCK_ROWS
+        block_rows = block_rows or default_config().block_rows
         train, test, stats = streaming.ingest(
             chunks, shape, num_shards=num_shards or 1, spool_dir=spool_dir,
             test_fraction=test_fraction, block_rows=block_rows,

@@ -1,4 +1,6 @@
-"""Wrappers that dispatch the three sparse kernels by the tensors' device.
+"""Wrappers that dispatch the three sparse kernels by the tensors' device,
+and the Gram-matvec schedules built on them over a bucket view
+(:func:`bucket_matvec`), shared by the solvers and the planner.
 
 A CUDA tensor goes to the hand-written kernel (``kernels.tttp``,
 ``kernels.mttkrp``, ``kernels.cg_matvec``), which launches or raises; a CPU
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
@@ -71,6 +73,21 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def _refuse_grad(kernel: str, *tensors) -> None:
+    """The CUDA kernels have no backward (nor have the reference's Pallas
+    kernels): with grad mode on, an input that requires grad raises rather
+    than leaving an output without a ``grad_fn``, a silently wrong
+    gradient. On the CPU the plain versions differentiate by autograd."""
+    if not torch.is_grad_enabled():
+        return
+    for t in tensors:
+        if t is not None and t.requires_grad:
+            raise RuntimeError(
+                f"the {kernel} CUDA kernel has no backward, but an input "
+                f"requires grad: detach the inputs or run under "
+                f"torch.no_grad() (the CPU's plain versions differentiate)")
+
+
 def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
           factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
     """TTTP over flat (m,) slots, 0 where ``valid`` is false. Vector factors
@@ -79,6 +96,7 @@ def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
                for f in factors]
     if not _on_card(values):
         return kref.tttp_ref(values, indices, valid, factors)
+    _refuse_grad("TTTP", values, *factors)
     return ktttp.tttp_cuda(values, indices, valid, factors)
 
 
@@ -116,6 +134,7 @@ def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                                        buckets.local_row, factors,
                                        buckets.mode, buckets.block_rows)
         return out[:num_rows]
+    _refuse_grad("MTTKRP", buckets.values, *factors)
     return kmttkrp.mttkrp_cuda(buckets, factors)[:num_rows]
 
 
@@ -145,4 +164,66 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                                           buckets.local_row, factors, x,
                                           mode, buckets.block_rows)
         return out[:num_rows]
+    _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
     return kcg.cg_matvec_cuda(buckets, factors, x)[:num_rows]
+
+
+BUCKET_MATVEC_PATHS = ("fused", "tttp_mttkrp", "sliced")
+
+
+def column_slices(fs: Sequence[Optional[torch.Tensor]], h: int):
+    """``fs`` cut into ``h`` column slices of ⌈R/h⌉ (the last may be
+    narrower), each contiguous; ``h`` = 1 gives ``fs`` itself."""
+    if h <= 1:
+        return [list(fs)]
+    r = next(f.shape[1] for f in fs if f is not None)
+    rs = -(-r // h)
+    return [[None if f is None else f[:, c0:c0 + rs].contiguous()
+             for f in fs] for c0 in range(0, r, rs)]
+
+
+def bucket_matvec(buckets, factors: Sequence[Optional[torch.Tensor]],
+                  x: torch.Tensor, path: str = "fused", h_slices: int = 1,
+                  x_factors: Optional[Sequence] = None,
+                  x_slices: Optional[int] = None,
+                  mttkrp: Optional[Callable] = None) -> torch.Tensor:
+    """G_ω x (paper eq. 3, without the λ term) over a bucket view of Ω along
+    ``buckets.mode``: nothing is gathered through the bucket pattern per
+    call. The schedules of the solvers' and the planner's Gram matvec:
+
+    * ``fused`` (``h_slices`` 1): :func:`cg_matvec_bucketed`;
+    * otherwise the two halves: the TTTP kernel over the view,
+      z_n = ω_n Σ_s Π a_ds · x_is in bucket order, then an MTTKRP of the
+      view with values z. ``h_slices`` > 1 is the paper's H-sliced
+      schedule (the TTTP halves of ⌈R/H⌉-column slices summed into z, then
+      one MTTKRP per column slice, joined); ``sliced`` is this schedule
+      by name.
+
+    ``x_factors`` gives the TTTP half factors of its own (an einsum whose
+    two rank halves read different matrices), cut into ``x_slices``
+    (default ``h_slices``). ``mttkrp(zb, fs)`` runs the MTTKRP half on the
+    view ``zb`` and one column slice ``fs`` of the factors (default
+    :func:`mttkrp_bucketed`, the MTTKRP kernel). Single-device: the
+    reference's psum over a model axis between the halves has no
+    counterpart until the port distributes."""
+    if path not in BUCKET_MATVEC_PATHS:
+        raise ValueError(f"matvec path {path!r} not in {BUCKET_MATVEC_PATHS}")
+    mode = buckets.mode
+    num_rows = buckets.shape[mode]
+    if (path == "fused" and h_slices == 1 and x_factors is None
+            and mttkrp is None):
+        return cg_matvec_bucketed(buckets, factors, x, num_rows=num_rows)
+    fs = list(factors if x_factors is None else x_factors)
+    fs[mode] = x
+    z = None
+    for sl in column_slices(fs, x_slices or h_slices):
+        part = tttp_bucket_values(buckets, sl)
+        z = part if z is None else z + part
+    zb = dataclasses.replace(buckets, values=z)
+    if mttkrp is None:
+        def mttkrp(view, sl):
+            return mttkrp_bucketed(view, sl, num_rows=num_rows)
+    fs = list(factors)
+    fs[mode] = None
+    cols = [mttkrp(zb, sl) for sl in column_slices(fs, h_slices)]
+    return cols[0] if len(cols) == 1 else torch.cat(cols, dim=1)

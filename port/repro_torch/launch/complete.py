@@ -2,7 +2,7 @@
 
     python -m repro_torch.launch.complete --algorithm als --dataset function \\
         --dims 200,180,160 --nnz 200000 --rank 10 --sweeps 10 \\
-        [--loss quadratic] [--matvec-path fused|tttp_mttkrp] \\
+        [--loss quadratic] [--matvec-path fused|tttp_mttkrp|auto|sliced|dense] \\
         [--ckpt-dir DIR] [--dump-factors DIR|PATH.npz] [--device cuda|cpu]
 
 Algorithms, as in the reference: ``als`` (implicit-CG ALS, quadratic
@@ -15,7 +15,11 @@ and ``ggn``; the other algorithms fit the quadratic loss whatever it says.
 On ``cuda`` the sweeps run the three hand-written kernels: TTTP for model
 values and the RMSE, the bucketed MTTKRP for right-hand sides and
 gradients, and the fused CG matvec (or TTTP + bucketed MTTKRP with
-``--matvec-path tttp_mttkrp``) in the CG loops of ``als`` and ``ggn``.
+``--matvec-path tttp_mttkrp``) in the CG loops of ``als`` and ``ggn``;
+``--matvec-path auto|sliced|dense`` runs that matvec through the planner
+(``auto``: the cost model picks, ``fused`` at the usual shapes).
+``--block-rows`` sets the planner's bucket granularity
+(``planner.set_default_config``), so ingest and dispatch read one view.
 ``--dataset`` is the function tensor or the Netflix-shaped ratings tensor
 (``data.synthetic.netflix_like``, three dims). ``--init-npz`` loads the
 tensor (``indices``, ``values``, ``valid``, ``shape``) and the initial
@@ -34,8 +38,8 @@ written as the reference writes it (step = ``--sweeps``, leaves
 ``factor_<d>``, metadata ``kind``, ``rank``, ``shape``, ``algorithm``,
 ``loss``, ``link``, ``dataset``, ``nnz``, ``sweeps``).
 
-``--mesh`` and the planner's matvec paths (``auto``, ``sliced``,
-``dense``) are refused with a message: they are later slices of the port.
+``--mesh`` (distribution, ``ROADMAP.md`` Queue A item 4) and
+``--plan-cache`` (the kernel-tile tuner, item 2) are refused with a message.
 """
 from __future__ import annotations
 
@@ -51,14 +55,14 @@ from repro_torch import checkpoint as ckpt
 from repro_torch import interop
 from repro_torch.core import losses as LOSS
 from repro_torch.core.completion import GGNState, make_step
-from repro_torch.core.completion.als import (MATVEC_PATHS,
-                                             PLANNER_MATVEC_PATHS)
+from repro_torch.core.completion.als import MATVEC_PATHS
 from repro_torch.core.completion.gcp import gcp_loss
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import CompletionDataset
 from repro_torch.kernels import ops as kops
+from repro_torch.planner import PlannerConfig, set_default_config
 from repro_torch.runtime import RestartableLoop
 
 ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
@@ -87,10 +91,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--block-rows", type=int, default=8,
                     help="CCSR bucket granularity (output rows per CTA)")
     ap.add_argument("--matvec-path", default="fused",
-                    choices=MATVEC_PATHS + PLANNER_MATVEC_PATHS,
-                    help="Gram matvec of als and ggn: one fused kernel, or "
-                         "TTTP then bucketed MTTKRP (auto, sliced and dense "
-                         "are planner candidates, not ported yet)")
+                    choices=MATVEC_PATHS,
+                    help="Gram matvec of als and ggn: one fused kernel, "
+                         "TTTP then bucketed MTTKRP, or through the planner "
+                         "(auto: the cost model picks; sliced; dense)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the torch.Generators behind data, initial "
@@ -106,7 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="checkpoint every 5 sweeps into DIR and resume from "
                          "its newest checkpoint (no default: without it "
                          "nothing is checkpointed)")
-    ap.add_argument("--mesh", default=None, help="not ported yet")
+    ap.add_argument("--mesh", default=None,
+                    help="refused: distribution is not ported yet")
+    ap.add_argument("--plan-cache", default=None,
+                    help="refused: the kernel-tile tuner is not ported yet")
     return ap
 
 
@@ -115,16 +122,16 @@ def check_supported(args) -> None:
     if args.loss not in LOSS.LOSSES:
         raise SystemExit(f"unknown --loss {args.loss}; "
                          f"choices: {sorted(LOSS.LOSSES)}")
-    if args.matvec_path in PLANNER_MATVEC_PATHS:
-        raise SystemExit(f"--matvec-path {args.matvec_path}: a planner "
-                         f"candidate; the planner is not ported yet (use "
-                         f"{' or '.join(MATVEC_PATHS)})")
     if args.dataset == "netflix" and args.init_npz is None and \
             len(args.dims.split(",")) != 3:
         raise SystemExit("--dataset netflix: --dims takes three sizes "
                          "(users, movies, days)")
     if args.mesh is not None:
-        raise SystemExit("--mesh: the port runs on one device so far")
+        raise SystemExit("--mesh: the port runs on one device so far "
+                         "(distribution, ROADMAP.md Queue A item 4)")
+    if args.plan_cache is not None:
+        raise SystemExit("--plan-cache: the kernel-tile tuner is not ported "
+                         "yet (ROADMAP.md Queue A item 2)")
 
 
 @dataclasses.dataclass
@@ -271,6 +278,8 @@ def dump_factors(args, run: Run) -> None:
 def main(argv: Optional[Sequence[str]] = None) -> Run:
     args = build_parser().parse_args(argv)
     check_supported(args)
+    # ingest (CompletionDataset) and planner dispatch read one bucket view
+    set_default_config(PlannerConfig(block_rows=args.block_rows))
     t0 = time.perf_counter()
     ds, factors = load_problem(args)
     _sync(ds.tensor.device)

@@ -25,7 +25,7 @@ metrics evaluate exp(model) in rate space).
 
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the
 CPU). The kernel-tile plan cache (``--plan-cache``, ``REPRO_PLAN_CACHE``) is
-refused: the tuner is not ported yet.
+refused: the kernel-tile tuner is ``ROADMAP.md`` Queue A item 2.
 """
 from __future__ import annotations
 

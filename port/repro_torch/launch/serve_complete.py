@@ -18,6 +18,10 @@ then drives the three endpoints of ``repro_torch.serve.ServeEngine``:
 * ``--foldin-users`` cold-user fold-ins with ``--foldin-nnz``-entry
   synthetic histories (damped one-row ALS on the frozen factors).
 
+``--score-path`` scores through the planner's TTTP forced onto that path,
+``--matvec-path`` picks fold-in's Gram matvec (the planner's candidates
+``auto``, ``sliced`` and ``dense`` among them).
+
 ``--verify`` checks the results before any timing is trusted, against
 oracles computed on the host in float64 from the factors: served scores
 within 1e-6 · max(1, max|s|) of a numpy gather chain, fold-in rows within
@@ -51,8 +55,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch-size", type=int, default=1024)
     ap.add_argument("--score-path", default=None,
                     choices=["all_at_once", "sliced", "pairwise", "dense"],
-                    help="a planner TTTP path for scoring; not ported yet "
-                         "(default: the TTTP kernel)")
+                    help="score through the planner's TTTP, forced onto "
+                         "this path (default: the TTTP kernel directly)")
     ap.add_argument("--topk", type=int, default=0, metavar="K",
                     help="also run top-k retrieval (0 disables)")
     ap.add_argument("--topk-mode", type=int, default=1,
@@ -69,10 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--foldin-lam", type=float, default=1e-2,
                     help="fold-in ridge damping λ")
     ap.add_argument("--matvec-path", default=None,
-                    choices=["fused", "tttp_mttkrp", "sliced", "dense"],
-                    help="fold-in Gram matvec: the fused kernel (default) "
-                         "or TTTP then the MTTKRP; sliced and dense are "
-                         "planner candidates, not ported yet")
+                    choices=["fused", "tttp_mttkrp", "auto", "sliced",
+                             "dense"],
+                    help="fold-in Gram matvec: the fused kernel (default), "
+                         "TTTP then the MTTKRP, or through the planner "
+                         "(auto: the cost model picks; sliced; dense)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--verify", action="store_true",
                     help="check scores (1e-6) and fold-in rows (1e-4) "

@@ -7,17 +7,19 @@ nothing while the current CUDA stream captures a graph.
 
     from repro_torch import obs
     obs.enable(jsonl="trace.jsonl")
-    ...                                  # ingest and loop spans record
-    print(obs.get_registry().summary())  # counters, gauges, timings
+    ...                                  # ingest, loop, planner spans
+    print(obs.get_registry().summary())  # counters, timings, plan table
 """
-from repro_torch.obs.metrics import (JsonlSink, MetricsRegistry, Timing,
-                                     read_jsonl)
+from repro_torch.obs.metrics import (JsonlSink, MetricsRegistry, PlanRecord,
+                                     Timing, read_jsonl)
 from repro_torch.obs.trace import (capturing, counter_add, disable,
                                    emit_event, enable, enabled, gauge_set,
-                                   get_registry, span, synchronize)
+                                   get_registry, last_root, sink, span,
+                                   synchronize, trace_clean)
 
 __all__ = [
-    "span", "enable", "disable", "enabled", "get_registry", "emit_event",
-    "counter_add", "gauge_set", "capturing", "synchronize",
-    "MetricsRegistry", "Timing", "JsonlSink", "read_jsonl",
+    "span", "enable", "disable", "enabled", "get_registry", "last_root",
+    "sink", "emit_event", "counter_add", "gauge_set", "capturing",
+    "trace_clean", "synchronize", "MetricsRegistry", "Timing", "PlanRecord",
+    "JsonlSink", "read_jsonl",
 ]

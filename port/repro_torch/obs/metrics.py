@@ -1,13 +1,14 @@
-"""Process-local metrics: counters, gauges and timing histograms, with a
-JSONL event sink.
+"""Process-local metrics: counters, gauges, timing histograms and the
+planner's predicted-against-measured table, with a JSONL event sink.
 
 The registry is plain Python behind a lock: a dict write per event, cheap
 enough for eager hot paths. Aggregation is pull-based (``summary()``); the
-experiment harness is the in-package consumer. The reference's planner
-table (predicted against measured cost per plan) comes with the planner.
+experiment harness and ``chip_smoke.py``'s planner phase are its
+consumers.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import threading
@@ -80,14 +81,39 @@ class Timing:
                 "p50_s": self.quantile(0.50), "p95_s": self.quantile(0.95)}
 
 
+@dataclasses.dataclass
+class PlanRecord:
+    """One (expression, path, distribution) cell of the predicted-against-
+    measured table: the §5.3 cost-model prediction frozen at first
+    execution, with a timing histogram of every measured eager run of that
+    plan."""
+    kind: str
+    path: str
+    expr: str
+    predicted: Dict[str, float]          # flops / mem / comm / seconds
+    measured: Timing = dataclasses.field(default_factory=Timing)
+
+    def summary(self) -> Dict[str, Any]:
+        meas = self.measured.summary()
+        pred_s = self.predicted.get("seconds", 0.0)
+        # >1: the cost model was optimistic by that factor; the rates only
+        # matter up to ranking, so what the table checks is that the ratio
+        # is stable across the paths of one family
+        ratio = (meas["mean_s"] / pred_s) if pred_s > 0 else float("nan")
+        return {"kind": self.kind, "path": self.path, "expr": self.expr,
+                "predicted": dict(self.predicted), "measured": meas,
+                "measured_over_predicted": ratio}
+
+
 class MetricsRegistry:
-    """Counters + gauges + named timing histograms."""
+    """Counters + gauges + named timing histograms + plan table."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, float] = {}
         self.timings: Dict[str, Timing] = {}
+        self.plans: Dict[str, PlanRecord] = {}
 
     def counter_add(self, name: str, value: float = 1.0) -> None:
         with self._lock:
@@ -104,11 +130,25 @@ class MetricsRegistry:
                 t = self.timings[name] = Timing()
             t.observe(seconds)
 
+    def record_plan(self, key: str, kind: str, path: str, expr: str,
+                    predicted: Dict[str, float], seconds: float) -> None:
+        """One measured eager execution of a planned contraction; the
+        prediction is frozen on first sight of the key (it is a function of
+        the static signature alone, so later calls agree)."""
+        with self._lock:
+            rec = self.plans.get(key)
+            if rec is None:
+                rec = self.plans[key] = PlanRecord(
+                    kind, path, expr, {k: float(v)
+                                       for k, v in predicted.items()})
+            rec.measured.observe(seconds)
+
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()
             self.gauges.clear()
             self.timings.clear()
+            self.plans.clear()
 
     def summary(self) -> Dict[str, Any]:
         with self._lock:
@@ -116,6 +156,7 @@ class MetricsRegistry:
                 "counters": dict(self.counters),
                 "gauges": dict(self.gauges),
                 "timings": {k: t.summary() for k, t in self.timings.items()},
+                "plans": {k: r.summary() for k, r in self.plans.items()},
             }
 
 

@@ -61,6 +61,10 @@ def disable() -> None:
         _SINK = None
 
 
+def sink() -> Optional[JsonlSink]:
+    return _SINK
+
+
 def emit_event(record: Dict[str, Any]) -> None:
     """Write one non-span event (ingest stats, a summary, …) to the sink,
     if one is installed."""
@@ -73,6 +77,19 @@ def capturing() -> bool:
     initialised CUDA context nothing can be capturing."""
     return (torch.cuda.is_initialized()
             and torch.cuda.is_current_stream_capturing())
+
+
+def trace_clean() -> bool:
+    """True when no CUDA graph is being captured: the port's counterpart of
+    the reference's "not under a jax trace". Work that must not enter a
+    graph (planning, fenced timing, accounting) checks it."""
+    return not capturing()
+
+
+def last_root() -> Optional[Dict[str, Any]]:
+    """The most recently finished root span's nested record (this
+    thread)."""
+    return getattr(_TLS, "last_root", None)
 
 
 def synchronize(x) -> None:
@@ -166,6 +183,8 @@ def span(name: str, **attrs) -> Iterator[Any]:
         _REGISTRY.observe(sp.path, dur)
         if st:
             st[-1].children.append(rec)
+        else:
+            _TLS.last_root = rec
         if _SINK is not None:
             flat = dict(rec)
             flat.pop("children", None)

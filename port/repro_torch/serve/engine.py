@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.core.distributed import no_planner_path
+from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import ops as kops
 from repro_torch.serve import foldin as _foldin
 from repro_torch.serve import topk as _topk
@@ -115,10 +115,13 @@ class ServeEngine:
     """Serving over one frozen :class:`ServingModel` whose factors all lie
     on ``device`` (``cuda`` unless the caller asks for the CPU).
 
-    ``score_path`` (a planner TTTP candidate) and the planner paths of
-    ``foldin_matvec_path`` raise: the planner is not ported yet.
+    ``score_path`` None scores by the TTTP kernel directly; a planner TTTP
+    candidate scores through ``planner.planned_tttp`` forced onto it.
     ``foldin_matvec_path`` None or ``"fused"`` runs the fused CG-matvec
-    kernel, ``"tttp_mttkrp"`` TTTP then the MTTKRP."""
+    kernel, ``"tttp_mttkrp"`` TTTP then the MTTKRP, ``"auto"``,
+    ``"sliced"`` and ``"dense"`` the planner's Gram matvec. A key's plans
+    are built in its eager first call, so a capture replays cached
+    plans."""
 
     def __init__(self, model: ServingModel, max_batch: int = 4096,
                  min_batch: int = 64, topk_block: int = 4096,
@@ -126,7 +129,7 @@ class ServeEngine:
                  foldin_lam: float = 1e-2,
                  foldin_matvec_path: Optional[str] = None,
                  device="cuda"):
-        no_planner_path(score_path)
+        self.score_path = score_path
         self.foldin_route = _foldin.matvec_route(foldin_matvec_path)
         self.device = torch.device(device)
         # the engine gathers factor rows by global index and scans whole
@@ -185,10 +188,22 @@ class ServeEngine:
         fs = self.model.factors
         out = np.empty((n,), _np_dtype(fs[0]))
 
-        def run(batch):
-            return apply_link(multilinear_scores(fs, batch), lk)
+        shape = self.model.shape
+        path = self.score_path
 
-        with obs.span("serve/score", n=n, link=lk, path="tttp") as sp:
+        def run(batch):
+            if path is None:
+                return apply_link(multilinear_scores(fs, batch), lk)
+            from repro_torch.planner import planned_tttp
+            ones = torch.ones(batch.shape[0], dtype=fs[0].dtype,
+                              device=batch.device)
+            st = SparseTensor(batch, ones, torch.ones_like(ones, dtype=bool),
+                              shape, batch.shape[0])
+            return apply_link(planned_tttp(st, list(fs), path=path).values,
+                              lk)
+
+        with obs.span("serve/score", n=n, link=lk,
+                      path=path or "tttp") as sp:
             for lo in range(0, n, self.max_batch):
                 chunk = idx[lo:lo + self.max_batch]
                 b = _bucket(chunk.shape[0], self.min_batch, self.max_batch)

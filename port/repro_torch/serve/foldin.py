@@ -14,7 +14,10 @@ slot, and one batched one-row ALS update solves all of them. Both halves
 run over the history's CCSR bucket view (``block_rows`` 8): b is the
 bucketed MTTKRP kernel, each CG matvec the fused CG-matvec kernel
 (``matvec_path`` None or ``"fused"``) or TTTP then the MTTKRP
-(``"tttp_mttkrp"``), through ``als.bucket_gram_matvec``.
+(``"tttp_mttkrp"``), through ``als.bucket_gram_matvec``; the planner's
+candidates (``"auto"``, ``"sliced"``, ``"dense"``) run it through
+``planner.planned_cg_matvec`` over the same view
+(``SparseTensor.from_buckets``).
 :func:`solve_buckets` takes the bucket views themselves, so the serving
 engine can capture it over static buffers in a CUDA graph.
 """
@@ -42,14 +45,9 @@ BLOCK_ROWS = 8
 def matvec_route(matvec_path: Optional[str]) -> str:
     """The ``als`` matvec route of a fold-in ``matvec_path``: None and
     ``"fused"`` take the fused kernel, ``"tttp_mttkrp"`` TTTP then the
-    MTTKRP; the planner's candidates raise."""
+    MTTKRP, ``"auto"``, ``"sliced"`` and ``"dense"`` the planner."""
     if matvec_path is None:
         return "fused"
-    if matvec_path in als.PLANNER_MATVEC_PATHS:
-        raise NotImplementedError(
-            f"matvec_path={matvec_path!r} is a planner candidate; the "
-            f"planner is not ported yet (ROADMAP.md Queue A: the planner "
-            f"and the ctf facade)")
     if matvec_path not in als.MATVEC_PATHS:
         raise ValueError(f"matvec_path {matvec_path!r} not in "
                          f"{(None,) + als.MATVEC_PATHS}")
@@ -112,8 +110,16 @@ def solve_buckets(buckets, omega_buckets, factors: Sequence[torch.Tensor],
     cg_iters = max(4 * r, 32) if cg_iters is None else cg_iters
     b_factors = [None if d == mode else fs[d] for d in range(len(fs))]
     b = kops.mttkrp_bucketed(buckets, b_factors, num_rows=batch)   # (B, R)
-    mv = functools.partial(als.bucket_gram_matvec, omega_buckets, fs,
-                           lam=lam, matvec_path=matvec_path)
+    if matvec_path in als.DIRECT_MATVEC_PATHS:
+        mv = functools.partial(als.bucket_gram_matvec, omega_buckets, fs,
+                               lam=lam, matvec_path=matvec_path)
+    else:
+        # the planner reads the same view: from_buckets hands it over
+        # cached, so nothing is bucketed again
+        mv = functools.partial(als.gram_matvec,
+                               SparseTensor.from_buckets(omega_buckets), fs,
+                               mode, lam=lam, matvec_path=matvec_path,
+                               block_rows=omega_buckets.block_rows)
     if x0 is None:
         x0 = torch.zeros((batch, r), dtype=b.dtype, device=b.device)
     return als.batched_cg(mv, b, x0, tol=cg_tol, max_iters=cg_iters)

@@ -197,17 +197,23 @@ def test_batched_cg_fixed_trip_matches_early_exit():
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
 
 
-def test_gram_matvec_refuses_unported_options():
-    """The planner's candidates are refused, never ignored: a
-    ``matvec_path`` outside the port's two routes, and any
-    ``mttkrp_path``, even beside the H-sliced route."""
+def test_gram_matvec_planner_options_match_reference():
+    """The planner's options, against the reference's: ``mttkrp_path``
+    beside the H-sliced route, and the planner's ``matvec_path``
+    candidates; an unknown ``matvec_path`` raises."""
     j, jo, jf, t, to, tf = _problem(3)
-    with pytest.raises(NotImplementedError, match="planner"):
-        als.gram_matvec(to, tf, 0, tf[0], LAM, h_slices=2,
-                        mttkrp_path="bucketed")
+    want = jals.gram_matvec(jo, jf, 0, jf[0], LAM, h_slices=2,
+                            mttkrp_path="bucketed")
+    got = als.gram_matvec(to, tf, 0, tf[0], LAM, h_slices=2,
+                          mttkrp_path="bucketed")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     for path in ("dense", "sliced", "auto"):
-        with pytest.raises(ValueError, match="matvec_path"):
-            als.gram_matvec(to, tf, 0, tf[0], LAM, matvec_path=path)
+        want = jals.gram_matvec(jo, jf, 0, jf[0], LAM, matvec_path=path)
+        got = als.gram_matvec(to, tf, 0, tf[0], LAM, matvec_path=path)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL,
+                                   err_msg=path)
+    with pytest.raises(ValueError, match="matvec_path"):
+        als.gram_matvec(to, tf, 0, tf[0], LAM, matvec_path="pairwise")
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -234,22 +240,54 @@ def test_cli_from_npz_matches_reference_sweep(tmp_path, capsys, path):
             np.testing.assert_array_equal(z[f"factor_{d}"], f.numpy())
 
 
-@pytest.mark.parametrize("argv", [["--algorithm", "ggn", "--matvec-path",
-                                   "auto"], ["--mesh", "2,1"],
+@pytest.mark.parametrize("argv", [["--mesh", "2,1"],
                                   ["--mesh", "4,2", "--ckpt-dir", "ck"],
-                                  ["--algorithm", "als", "--matvec-path",
-                                   "auto"],
-                                  ["--algorithm", "ggn", "--matvec-path",
-                                   "dense"],
-                                  ["--algorithm", "ggn", "--matvec-path",
-                                   "sliced"],
-                                  ["--matvec-path", "dense"]])
+                                  ["--plan-cache", "plans.json"]])
 def test_cli_refuses_unported(argv):
-    """The planner's matvec paths and --mesh (checkpoints, --dataset
-    netflix and --dump-factors DIR run since the third slice of the port:
-    tests/test_torch_{experiment,checkpoint}.py)."""
-    with pytest.raises(SystemExit, match="port|ported"):
+    """--mesh (distribution) and --plan-cache (the kernel-tile tuner) are
+    refused, naming their ROADMAP.md item (checkpoints, --dataset netflix
+    and --dump-factors DIR run: tests/test_torch_{experiment,checkpoint}.py)."""
+    with pytest.raises(SystemExit, match="port.*Queue A item"):
         complete.main(["--device", "cpu"] + argv)
+
+
+# the planner's matvec paths of the CLI (refused before the planner was
+# ported); ggn runs one iteration, where float32 holds 1e-4
+PLANNER_CLI_RUNS = [("ggn", "auto"), ("als", "auto"), ("ggn", "dense"),
+                    ("ggn", "sliced"), ("als", "dense")]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("algo,path", PLANNER_CLI_RUNS,
+                         ids=[f"{a}-{p}" for a, p in PLANNER_CLI_RUNS])
+def test_cli_planner_matvec_paths_match_reference(tmp_path, capsys, algo,
+                                                  path):
+    """``--matvec-path auto|sliced|dense`` from the reference's arrays
+    (``--init-npz``) against the JAX package's sweep functions, called as
+    its CLI calls them (ggn with the same ``matvec_path``)."""
+    j, jo, jf, t, to, tf = _problem(3, seed=7)
+    src = tmp_path / "init.npz"
+    np.savez(src, indices=np.asarray(j.indices), values=np.asarray(j.values),
+             valid=np.asarray(j.valid), shape=np.asarray(j.shape),
+             **{f"factor_{d}": np.asarray(f) for d, f in enumerate(jf)})
+    sweeps = 2 if algo == "als" else 1
+    run = complete.main(["--device", "cpu", "--init-npz", str(src),
+                         "--algorithm", algo, "--loss", "poisson_log",
+                         "--sweeps", str(sweeps), "--cg-iters",
+                         str(CG_ITERS), "--lam", str(LAM),
+                         "--matvec-path", path])
+    assert f"matvec_path={path}" in capsys.readouterr().out
+    if algo == "als":
+        want = _reference_sweeps("als", "quadratic", j, jf, sweeps)[0]
+    else:
+        # jitted, as the reference's CLI runs it (its eager ggn_sweep leaks
+        # a tracer through the fused path's pattern cache)
+        sweep = jax.jit(lambda s, stt: jggn.ggn_sweep(
+            s, stt, jlosses.LOSSES["poisson_log"], LAM, cg_tol=CG_TOL,
+            cg_iters=CG_ITERS, matvec_path=path))
+        want = [list(sweep(j, jggn.ggn_init(jf, damping=1e-5)).factors)]
+    for fs, w in zip(run.sweep_factors, want):
+        _close(fs, w)
 
 
 def test_cli_refuses_unknown_loss():

@@ -530,3 +530,90 @@ def test_replays_count_the_launches_of_eager_calls(dev):
         eng.fold_in(hists, 0)
     assert kops.launch_counts() == {k: n * v for k, v in eager_fold.items()}
     assert eng.graph_stats()["replays"] == 2 * (n - 1)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_inputs_that_require_grad(dev):
+    """The CUDA kernels have no backward: with grad mode on, an input that
+    requires grad raises instead of returning an output without a grad_fn;
+    under no_grad, or with detached inputs, they launch."""
+    st, fs = _problem(dev, 7, (40, 24, 12), 3000, 6)
+    bk = st.row_buckets(0, 8)
+    x = fs[0].clone()
+    leaf = fs[1].clone().requires_grad_()
+    grad_fs = [None, leaf, fs[2]]
+    with pytest.raises(RuntimeError, match="no backward"):
+        kops.tttp_values(st, [fs[0], leaf, fs[2]])
+    with pytest.raises(RuntimeError, match="no backward"):
+        kops.mttkrp_bucketed(bk, grad_fs)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kops.cg_matvec_bucketed(bk, grad_fs, x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kops.mttkrp_bucketed(dataclasses.replace(
+            bk, values=bk.values.clone().requires_grad_()), [None, *fs[1:]])
+    with torch.no_grad():
+        out = kops.mttkrp_bucketed(bk, grad_fs)
+    np.testing.assert_allclose(
+        out.cpu().numpy(),
+        kops.mttkrp_bucketed(bk, [None, *fs[1:]]).cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+def test_planner_paths_on_card_match_cpu(dev):
+    """Every candidate of the four families the solvers use, through
+    ``ctf.einsum`` on the card, against the same call on the CPU; the
+    all-at-once, bucketed and fused paths launch their kernels."""
+    import repro_torch.core.api as ctf
+    st, fs = _problem(dev, 8, (60, 40, 30), 6000, 8)
+    cst, cfs = _on_cpu(st, fs, torch.float32)
+    x, cx = fs[0] * 0.5, cfs[0] * 0.5
+    cases = {"ijk,jr,kr->ir": ((fs[1], fs[2]), (cfs[1], cfs[2])),
+             "ijk,ir,jr,kr->ijk": (tuple(fs), tuple(cfs)),
+             "ijk,jr,kr,iy,jy,ky->ir": ((fs[1], fs[2], x, fs[1], fs[2]),
+                                        (cfs[1], cfs[2], cx, cfs[1],
+                                         cfs[2])),
+             "ijk->j": ((), ())}
+    kernel_of = {("ijk,jr,kr->ir", "all_at_once"): "mttkrp",
+                 ("ijk,jr,kr->ir", "bucketed"): "mttkrp",
+                 ("ijk,ir,jr,kr->ijk", "all_at_once"): "tttp",
+                 ("ijk,ir,jr,kr->ijk", "sliced"): "tttp",
+                 ("ijk,jr,kr,iy,jy,ky->ir", "fused"): "cg_matvec",
+                 ("ijk,jr,kr,iy,jy,ky->ir", "tttp_mttkrp"): "mttkrp",
+                 ("ijk,jr,kr,iy,jy,ky->ir", "sliced"): "mttkrp"}
+    for expr, (dense, cdense) in cases.items():
+        for path in ctf.plan(expr, st, *dense).candidates:
+            kops.reset_launch_counts()
+            got = ctf.einsum(expr, st, *dense, path=path)
+            counts = kops.launch_counts()
+            want = ctf.einsum(expr, cst, *cdense, path=path, device="cpu")
+            if hasattr(got, "todense"):
+                got, want = got.values, want.values
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-4, atol=1e-3,
+                                       err_msg=f"{expr} via {path}")
+            kernel = kernel_of.get((expr, path))
+            assert (counts[kernel] > 0) if kernel else \
+                not any(counts.values()), (expr, path, counts)
+
+
+@pytest.mark.cuda
+def test_engine_planner_paths_capture_and_replay(dev):
+    """score_path and the planner's fold-in matvec through captured graphs:
+    the plans are built in each key's eager first call, the replays match
+    the CPU engine."""
+    from repro_torch import planner, serve
+    arrays, queries, _, hists = _serve_case(3, (300, 200, 30), 10, 12, 20)
+    kw = dict(max_batch=64, score_path="all_at_once",
+              foldin_matvec_path="sliced")
+    card = serve.ServeEngine(interop.serving_model_from_numpy(
+        arrays, device=dev), device=dev, **kw)
+    cpu = serve.ServeEngine(interop.serving_model_from_numpy(
+        arrays, device="cpu"), device="cpu", **kw)
+    planner.clear_plan_cache()
+    for _ in range(2):                          # capture, then replay
+        np.testing.assert_allclose(card.score(queries[:50]),
+                                   cpu.score(queries[:50]), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(card.fold_in(hists, 0),
+                                   cpu.fold_in(hists, 0), **TOL)
+    assert card.graph_stats()["replays"] == 2

@@ -98,7 +98,7 @@ def test_disabled_and_capturing_spans_are_noops(monkeypatch):
     obs.gauge_set("g", 1.0)
     obs.emit_event({"kind": "dropped"})      # no sink installed
     assert obs.get_registry().summary() == {"counters": {}, "gauges": {},
-                                            "timings": {}}
+                                            "timings": {}, "plans": {}}
     assert not obs.capturing()               # no CUDA graph here
     obs.enable()
     monkeypatch.setattr(trace, "capturing", lambda: True)
@@ -161,4 +161,15 @@ def test_experiment_trace_rides_the_report(tmp_path):
     lines = metrics.read_jsonl(str(tmp_path / "trace_tiny-trace.jsonl"))
     kinds = [e["kind"] for e in lines]
     assert kinds[0] == "ingest" and kinds[-1] == "experiment_summary"
-    assert kinds.count("span") == 4
+    # loop/step and sweep per sweep; inside each sweep, the planner's span
+    # of each of ALS's three right-hand-side MTTKRPs
+    spans = [e["path"] for e in lines if e["kind"] == "span"]
+    assert len(spans) == 10
+    assert spans.count("loop/step/sweep/planner/mttkrp/all_at_once") == 6
+    assert [p for p in spans if "planner" not in p] == \
+        ["loop/step/sweep", "loop/step"] * 2
+    # one plan per mode's MTTKRP, measured once per sweep
+    plans = report["obs"]["plans"].values()
+    assert len(plans) == 3
+    assert all(p["path"] == "all_at_once" and p["measured"]["count"] == 2
+               for p in plans)

@@ -220,16 +220,31 @@ def test_fold_in_nonzero_mode_single_and_weights(models):
 
 
 @pytest.mark.parametrize("path", ["sliced", "dense", "auto"])
-def test_planner_paths_raise(models, path):
-    _, tm = models["identity"]
-    st = serve.pack_histories(_histories(np.random.default_rng(1), 0, 2, 4),
-                              SHAPE, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="planner"):
-        serve.fold_in(st, tm.factors, 0, matvec_path=path)
-    with pytest.raises(NotImplementedError, match="planner"):
-        serve.ServeEngine(tm, foldin_matvec_path=path, device="cpu")
-    with pytest.raises(NotImplementedError, match="planner"):
-        serve.ServeEngine(tm, score_path="all_at_once", device="cpu")
+def test_planner_paths_match_reference(models, path):
+    """The planner's fold-in matvec paths, by ``fold_in`` and through the
+    engine, and scoring through the planner's TTTP (``score_path``),
+    against the reference's."""
+    jm, tm = models["identity"]
+    hists = _histories(np.random.default_rng(1), 0, 5, 6)
+    st = serve.pack_histories(hists, SHAPE, 0, device="cpu")
+    jst = jserve.pack_histories(hists, SHAPE, 0)
+    rows, _ = serve.fold_in(st, tm.factors, 0, matvec_path=path)
+    jrows, _ = jserve.fold_in(jst, jm.factors, 0, matvec_path=path)
+    np.testing.assert_allclose(rows.numpy(), np.asarray(jrows), **FOLD_TOL)
+    eng = serve.ServeEngine(tm, max_batch=64, min_batch=8,
+                            foldin_matvec_path=path, device="cpu")
+    jeng = jserve.ServeEngine(jm, max_batch=64, min_batch=8,
+                              foldin_matvec_path=path)
+    np.testing.assert_allclose(eng.fold_in(hists, 0), jeng.fold_in(hists, 0),
+                               **FOLD_TOL)
+    score_path = {"sliced": "sliced", "dense": "dense",
+                  "auto": "all_at_once"}[path]
+    eng = serve.ServeEngine(tm, max_batch=64, min_batch=8,
+                            score_path=score_path, device="cpu")
+    jeng = jserve.ServeEngine(jm, max_batch=64, min_batch=8,
+                              score_path=score_path)
+    idx = _queries(np.random.default_rng(2), 40)
+    np.testing.assert_allclose(eng.score(idx), jeng.score(idx), **TOL)
 
 
 @pytest.mark.parametrize("users", [3, 70])
@@ -376,9 +391,13 @@ def test_serve_complete_verify_on_a_reference_checkpoint(reference_dump,
                            "topk", "foldin"}
     assert report["score"]["calls"] == 12 and report["score"]["qps"] > 0
     assert os.path.exists(out)
-    with pytest.raises(NotImplementedError, match="planner"):
-        serve_complete.main(["--factors", reference_dump, "--device", "cpu",
-                             "--matvec-path", "sliced"])
+    # scoring through the planner's TTTP, fold-in on its H-sliced matvec
+    serve_complete.main([
+        "--factors", reference_dump, "--device", "cpu", "--num-queries",
+        "500", "--batch-size", "256", "--foldin-users", "5", "--foldin-nnz",
+        "12", "--score-path", "all_at_once", "--matvec-path", "sliced",
+        "--verify"])
+    assert "verify OK" in capsys.readouterr().out
 
 
 def test_verify_catches_a_wrong_score(reference_dump):
@@ -423,7 +442,9 @@ def test_entry_points_default_to_cuda():
         [("SparseTensor.from_coo", None)]
     names = {f[0] for f in found}
     assert {"load_factors", "pack_histories", "ServeEngine.__init__",
-            "serving_model_from_numpy", "ingest_spec"} <= names
+            "serving_model_from_numpy", "ingest_spec", "tensor",
+            "random_sparse", "ones", "eye", "einsum",
+            "planned_einsum"} <= names
     from repro_torch.launch import complete, experiment
     for m in (complete, experiment, serve_complete):
         args = m.build_parser().parse_args(

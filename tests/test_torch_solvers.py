@@ -230,11 +230,16 @@ def test_ccd_sweeps_match_reference_and_each_other(order):
         assert torch.equal(f, b)
 
 
-def test_ccd_tttp_refuses_planner_path():
+def test_ccd_tttp_planner_path_matches_reference():
+    """``tttp_path`` forces the sweep's TTTP contractions onto a planner
+    candidate, as in the reference."""
     j, jf, t, tf = _pair(5, (10, 9, 8), 100, 3)
-    with pytest.raises(NotImplementedError, match="planner"):
-        ccd.ccd_sweep_tttp(t, tf, ccd.residual_values(t, tf), 0.1,
-                           tttp_path="all_at_once")
+    fs, rho = ccd.ccd_sweep_tttp(t, tf, ccd.residual_values(t, tf), 0.1,
+                                 tttp_path="all_at_once")
+    jfs, jrho = jccd.ccd_sweep_tttp(j, jf, jccd.residual_values(j, jf), 0.1,
+                                    tttp_path="all_at_once")
+    _close(fs, jfs, "ccd_tttp all_at_once")
+    np.testing.assert_allclose(rho.numpy(), np.asarray(jrho), **TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -412,6 +417,11 @@ def test_port_sources_import_neither_jax_nor_repro():
     files = [os.path.join(d, f) for d, _, fs in os.walk(root)
              for f in fs if f.endswith(".py")]
     assert len(files) >= 35
+    names = {os.path.relpath(f, root) for f in files}
+    assert {os.path.join("planner", f"{m}.py") for m in (
+        "__init__", "config", "ir", "cost", "dispatch", "plan")} | {
+        os.path.join("core", "api.py"),
+        os.path.join("sparse", "ops.py")} <= names
     files.append(os.path.join(PORT, "..", "chip_smoke.py"))
     bad = []
     for path in files:
