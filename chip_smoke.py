@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-ten phases and stops with a non-zero exit at the first failure (9a-9d run
-right after phase 6, on phase 3's tensor before it is freed, 9e after
-phase 8, on 7e's factors):
+eleven phases and stops with a non-zero exit at the first failure (9a-9d
+and 10 run right after phase 6, on phase 3's tensor before it is freed,
+9e after phase 8, on 7e's factors):
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
-   sm_90a and print each kernel's registers and spills;
+   sm_90a and print each instantiation's registers and spills (every
+   kernel is instantiated per tile depth, 1, 2 and 4 slots or nonzeros
+   per thread); every other phase but 10 launches the default tile, 256
+   threads x 2;
 2. hold each kernel against its plain PyTorch version on the card: R = 1,
    3, 10, 64 and 160 (all but 64 padded to a 16-byte row stride; 160 is
    wider than one launch of the bucketed body, so the MTTKRP runs in column
@@ -152,10 +155,36 @@ phase 8, on 7e's factors):
    e. ``launch.serve_complete --score-path all_at_once --matvec-path
       sliced --verify`` on 7e's factors: ``verify OK``, TTTP and the
       MTTKRP launched, no fused matvec;
-10. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3, 6, 7, 8 and 9 under
-   ``path_launches``), the card's name and power limit, and, last,
-   ``{"ok": true, "device": {...}}``.
+10. the kernel tiles (``kernels.tile``, ``kernels.footprint``,
+   ``planner.tuner``), at three layouts: phase 3's tensor (80 M, R = 10),
+   phase 8b's fold-in layout (128 buckets x 2048 slots, R = 32) and
+   netflix-small's skewed mode-0 buckets (R = 8):
+   a. for every instantiation the lattices launch there, the footprint
+      model's registers, static shared memory and CTAs per SM equal to
+      ``cudaFuncGetAttributes`` and the occupancy calculator; the local
+      (spill) bytes printed;
+   b. every lattice candidate of every family held against its plain
+      version (phase 4's tolerance), launched in its own shape (the
+      wrapper's ``last_launch``), and timed by CUDA events beside its
+      ``roofline.kernel_terms`` bound and ``obs.profile_fn``'s
+      ``frac_roofline``, which fails the run above 1.05; then
+      ``tuner.tune_family`` at the fold-in and netflix-small layouts;
+   c. ``tuner.ensure_tuned`` at 80 M through a plan cache in a temporary
+      directory, twice: every candidate measured, then none, with one hit
+      per family, the same winners and the same rates, and the launch
+      counts unchanged;
+   d. ``launch.complete`` at 7e's dims (ALS, 2 sweeps) at the default
+      tile, then twice with ``--plan-cache``: the second prints
+      ``measured=0``, its RMSE within 1e-5 of the default's, and all three
+      runs launch alike;
+   e. ``launch.report --spec netflix-ci --out FILE``, its kernel roofline
+      rows logged;
+   then the default tiles and the data-sheet rates are put back;
+11. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3, 6, 7, 8, 9 and 10
+   under ``path_launches``, and, at the layouts phase 10 timed, every
+   lattice tile's numbers under ``tiles``), the card's name and power
+   limit, and, last, ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -170,10 +199,6 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "port"))
-
-# H100 SXM data sheet: HBM3 rate and fp32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 
 # main path (phase 3): paper Fig. 7a density on one card
 DIMS = (20000, 20000, 20000)
@@ -192,28 +217,6 @@ MAIN_ATOL_OF_MAX = 1e-5
 
 def log(msg):
     print(msg, flush=True)
-
-
-def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(n_bytes, n_ops):
-    """Least time (ms) for the work and what sets it."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def gather_sector_bytes(n_rows, r):
-    """L2 sector bytes that gathering ``n_rows`` factor rows takes when each
-    row is read whole at the bucketed kernels' padded stride (R rounded up
-    to 4 floats): the 32-byte sectors a row spans, averaged over the row
-    offsets, which repeat every 8 rows."""
-    stride = 4 * (-(-r // 4) * 4)
-    spans = [(i * stride + stride - 1) // 32 - i * stride // 32 + 1
-             for i in range(8)]
-    return n_rows * 32 * sum(spans) / len(spans)
 
 
 def time_ms(torch, fn, reps):
@@ -271,24 +274,14 @@ def phase_build():
     log(f"phase 1: built {os.path.relpath(path, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s ({_build.nvcc_path()}, "
         f"{' '.join(_build.ARCH_FLAGS)})")
-    kernel = None
-    for line in _build.build_log().splitlines():
-        if line.startswith("=="):
-            log(f"  {line.strip()}")
-        elif "Compiling entry function" in line:
-            kernel = kernel_name(line)
-        elif "registers" in line or "spill" in line:
-            log(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
-
-
-def kernel_name(line):
-    """``tttp_kernel<3>`` or ``bucket_rows_kernel<16, 1>`` from a ptxas
-    line that names a mangled entry function."""
-    m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", line)
-    if m is None:
-        return line.split("'")[1] if "'" in line else line.strip()
-    args = re.findall(r"L[a-z](\d+)E", m.group(2))
-    return f"{m.group(1)}<{', '.join(args)}>"
+    usage = _build.resource_usage()
+    if not usage:
+        raise SystemExit("phase 1: no -Xptxas -v report beside the library")
+    for (name, args), u in sorted(usage.items()):
+        log(f"  {name}<{', '.join(map(str, args))}>: {u['registers']} "
+            f"registers, {u['smem']} B static shared, {u['stack']} B stack, "
+            f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} "
+            f"B")
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +342,10 @@ def _layouts(torch, pat, threads):
 
 
 def phase_check(torch, dev):
-    from repro_torch.kernels import _build
     from repro_torch.kernels import mttkrp as kmttkrp
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.tile import DEFAULT_TILE
     from repro_torch.sparse.ccsr import bucket_pattern
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_cases = 0
@@ -434,7 +427,8 @@ def phase_check(torch, dev):
                     if wide:
                         seen(f"R={r}: mttkrp in {tiles} column tiles, matvec "
                              f"as tttp + mttkrp")
-                    for k, v in _layouts(torch, pat, _build.THREADS).items():
+                    for k, v in _layouts(torch, pat,
+                                         DEFAULT_TILE.threads).items():
                         seen(k, v)
     torch.cuda.synchronize()
     missing = [k for k, v in covered.items() if not v]
@@ -539,12 +533,23 @@ def held(torch, name, got, want, where="phase 4"):
     return float(err.max())
 
 
+def terms_bound(family, **shapes):
+    """(bound ms, "bytes" or "operations") of one kernel call, from
+    ``roofline.kernel_terms`` of its shapes."""
+    from repro_torch.launch.roofline import bound, kernel_terms
+    t = kernel_terms(family, **shapes)
+    return bound(t["bytes"], t["flops"])
+
+
 def phase_timing(torch, run, launches, other_launches):
     """Hold each kernel against its plain version on the main path's
     tensors, through the ``kernels.ops`` wrapper the main path calls, then
-    time the wrapper, the plain version and the library call."""
+    time the wrapper, the plain version and the library call. Each bound
+    is ``roofline.kernel_terms`` of the call's shapes, as the report and
+    phase 10 read it."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch.roofline import gather_sector_bytes
     st, omega = run.dataset.tensor, run.dataset.omega
     fs = run.factors
     mode = 0
@@ -560,8 +565,8 @@ def phase_timing(torch, run, launches, other_launches):
                kref.tttp_ref(ones.values, ones.indices, ones.valid, fs))
     m, nd = st.indices.shape
     n_valid = int(ones.valid.sum())
-    b_ms, b_by = bound(nbytes(ones.values, ones.valid, ones.indices, *fs)
-                       + 4 * m, n_valid * RANK * nd)
+    b_ms, b_by = terms_bound("tttp", slots=m, nd=nd, rank=RANK,
+                             valid=n_valid, factor_rows=DIMS)
     rows_out.append(dict(
         name="tttp", route="cuda", source="port/repro_torch/csrc/tttp.cu",
         replaces="src/repro/kernels/tttp.py:61", launches=launches["tttp"],
@@ -588,8 +593,8 @@ def phase_timing(torch, run, launches, other_launches):
     err = held(torch, "tttp_bucket_view", kops.tttp_bucket_values(bo, fx),
                plain_tttp_buckets())
     n_valid = int(bo.valid.sum())
-    b_ms, b_by = bound(nbytes(bo.values, bo.valid, bo.indices, *fx)
-                       + 4 * nb * c, n_valid * RANK * nd)
+    b_ms, b_by = terms_bound("tttp", slots=nb * c, nd=nd, rank=RANK,
+                             valid=n_valid, factor_rows=DIMS)
     rows_out.append(dict(
         name="tttp_bucket_view", route="cuda",
         source="port/repro_torch/csrc/tttp.cu",
@@ -617,10 +622,11 @@ def phase_timing(torch, run, launches, other_launches):
                plain_mttkrp())
     n_valid = int(bk.valid.sum())
     other_fs = [f for f in others if f is not None]
-    out_bytes = 4 * bk.num_blocks * BLOCK_ROWS * RANK
-    b_ms, b_by = bound(nbytes(bk.values, bk.indices, bk.local_row, bk.valid,
-                              *other_fs) + out_bytes,
-                       n_valid * RANK * (len(other_fs) + 1))
+    other_rows = [f.shape[0] for f in other_fs]
+    b_ms, b_by = terms_bound("mttkrp", slots=bk.num_blocks * bk.capacity,
+                             nd=nd, rank=RANK, valid=n_valid,
+                             factor_rows=other_rows,
+                             out_rows=bk.num_blocks * BLOCK_ROWS)
     cols = [st.indices[:, d].long() for d in range(nd)]
     mvals = st.masked_values()
 
@@ -658,9 +664,11 @@ def phase_timing(torch, run, launches, other_launches):
     err = held(torch, "cg_matvec_bucketed",
                kops.cg_matvec_bucketed(bo, fs, x), plain_cg())
     n_valid = int(bo.valid.sum())
-    b_ms, b_by = bound(nbytes(bo.values, bo.indices, bo.local_row, bo.valid,
-                              *other_fs, x) + out_bytes,
-                       n_valid * RANK * (len(other_fs) + 3))
+    b_ms, b_by = terms_bound("cg_matvec", slots=bo.num_blocks * bo.capacity,
+                             nd=nd, rank=RANK, valid=n_valid,
+                             factor_rows=other_rows,
+                             out_rows=bo.num_blocks * BLOCK_ROWS,
+                             x_rows=x.shape[0])
     rows_out.append(dict(
         name="cg_matvec_bucketed", route="cuda",
         source="port/repro_torch/csrc/cg_matvec.cu",
@@ -692,11 +700,12 @@ def phase_timing(torch, run, launches, other_launches):
 
 def kernel_group(name):
     """Which of the port's kernels a device kernel's name is (the bucketed
-    body is bucket_rows_kernel<RMAX, FUSED>, FUSED = true for the matvec)."""
+    body is bucket_rows_kernel<RMAX, FUSED, SLOTS>, FUSED = true for the
+    matvec)."""
     if "tttp_kernel" in name:
         return "tttp"
     if "bucket_rows_kernel" in name:
-        return "cg_matvec" if "true>" in name else "mttkrp"
+        return "cg_matvec" if ", true," in name else "mttkrp"
     return "other"
 
 
@@ -804,6 +813,7 @@ def phase_solvers(torch, run):
     from repro_torch.core.completion import als, ccd, gauss_newton, sgd
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.launch.roofline import bound, nbytes
     from repro_torch.sparse.ccsr import bucket_pattern
     ds, init = run.dataset, run.init_factors
     st, omega = ds.tensor, ds.omega
@@ -1209,6 +1219,7 @@ def phase_skewed(torch, tmp):
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import experiment
+    from repro_torch.launch.roofline import bound, nbytes
     spec = experiment.SPECS["netflix-small"]
     log(f"phase 7d: run_experiment('{spec.name}') on cuda: shape "
         f"{spec.shape}, {spec.nnz} entries, rank {spec.rank}, {spec.sweeps} "
@@ -1440,6 +1451,7 @@ def phase_serve_netflix(torch, tmp, held_before):
     from repro_torch.kernels import ref as kref
     from repro_torch.launch import experiment
     from repro_torch.launch import serve_complete as sc
+    from repro_torch.launch.roofline import bound, nbytes
     from repro_torch.serve import ServeEngine, load_factors, percentiles
     from repro_torch.serve.foldin import omega_view
     spec = experiment.SPECS["paper-netflix"]
@@ -1941,6 +1953,429 @@ def phase_planner_serve(torch, dump):
     return {"serve 7e planner": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 10
+# ---------------------------------------------------------------------------
+
+# 10b: CUDA-event reps per candidate; a candidate that reads above its
+# roofline bound by more than this fails the run (no card beats its bound)
+TILE_REPS = 20
+MAX_FRAC_ROOFLINE = 1.05
+# 10d: ALS sweeps of each CLI run at 7e's dims; the cached run's final RMSE
+# against the default tile's
+CLI_SWEEPS = 2
+CLI_RMSE_TOL = 1e-5
+
+
+@dataclasses.dataclass
+class TileLayout:
+    """One workload phase 10 tunes at: the tuner's inputs (``st``,
+    ``omega``, ``factors``, ``x``) and, per family, the wrapper call under a
+    tile, its plain version, its roofline terms and the JSON row its
+    timings join (None: logged only)."""
+    label: str
+    st: object
+    omega: object
+    factors: list
+    x: object
+    calls: dict
+
+
+def main_layout(torch, run):
+    """Phase 3's tensor, as phase 4 calls the kernels."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.roofline import kernel_terms
+    st, omega, fs = run.dataset.tensor, run.dataset.omega, run.factors
+    x, rows = fs[0], st.shape[0]
+    ones = st.with_values(torch.ones_like(st.values))
+    bk, bo = st.row_buckets(0, BLOCK_ROWS), omega.row_buckets(0, BLOCK_ROWS)
+    others = [None] + fs[1:]
+    nb, c = bk.values.shape
+    bucket = dict(slots=nb * c, nd=st.ndim, rank=RANK, factor_rows=DIMS[1:],
+                  out_rows=nb * BLOCK_ROWS)
+    calls = {
+        "tttp": (lambda t: kops.tttp_values(ones, fs, tile=t),
+                 lambda: kref.tttp_ref(ones.values, ones.indices, ones.valid,
+                                       fs),
+                 kernel_terms("tttp", slots=st.cap, nd=st.ndim, rank=RANK,
+                              valid=int(st.valid.sum()), factor_rows=DIMS),
+                 "tttp"),
+        "mttkrp": (lambda t: kops.mttkrp_bucketed(bk, others, tile=t),
+                   lambda: kref.mttkrp_bucketed_ref(
+                       bk.values, bk.indices, bk.local_row, others, 0,
+                       BLOCK_ROWS)[:rows],
+                   kernel_terms("mttkrp", valid=int(bk.valid.sum()),
+                                **bucket),
+                   "mttkrp_bucketed"),
+        "cg_matvec": (lambda t: kops.cg_matvec_bucketed(bo, fs, x, tile=t),
+                      lambda: kref.cg_matvec_bucketed_ref(
+                          bo.values, bo.indices, bo.local_row, fs, x, 0,
+                          BLOCK_ROWS)[:rows],
+                      kernel_terms("cg_matvec", valid=int(bo.valid.sum()),
+                                   x_rows=rows, **bucket),
+                      "cg_matvec_bucketed")}
+    return TileLayout(f"80M (m={NNZ}, R={RANK})", st, omega, list(fs), x,
+                      calls)
+
+
+def bucket_calls(bk, bo, fs, x, rows_of, names):
+    """The MTTKRP and the fused matvec over a bucket view (``bo`` its Ω
+    view), bounded by the valid entries' bytes and ``rows_of`` rows of
+    each non-target factor, with their JSON rows' ``names``."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.roofline import kernel_terms
+    nb, c, nd = bk.indices.shape
+    br, rows = bk.block_rows, bk.shape[0]
+    others = [None] + list(fs[1:])
+    bucket = dict(slots=nb * c, nd=nd, rank=x.shape[1], factor_rows=rows_of,
+                  out_rows=rows, valid=int(bk.valid.sum()), valid_only=True)
+    return {
+        "mttkrp": (lambda t: kops.mttkrp_bucketed(bk, others, tile=t),
+                   lambda: kref.mttkrp_bucketed_ref(
+                       bk.values, bk.indices, bk.local_row, others, 0,
+                       br)[:rows],
+                   kernel_terms("mttkrp", **bucket), names[0]),
+        "cg_matvec": (lambda t: kops.cg_matvec_bucketed(bo, fs, x, tile=t),
+                      lambda: kref.cg_matvec_bucketed_ref(
+                          bo.values, bo.indices, bo.local_row, fs, x, 0,
+                          br)[:rows],
+                      kernel_terms("cg_matvec", x_rows=x.shape[0],
+                                   **bucket), names[1])}
+
+
+def foldin_layout(torch):
+    """Phase 8b's fold-in layout: 1024 cold users x 200 ratings at the
+    paper-netflix extents, R = 32, factors from the seed; the tuner reads
+    the view through ``SparseTensor.from_buckets``."""
+    import numpy as np
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.launch import experiment
+    from repro_torch.launch import serve_complete as sc
+    from repro_torch.serve import ServeEngine, ServingModel
+    from repro_torch.serve.foldin import omega_view
+    spec = experiment.SPECS["paper-netflix"]
+    shape, r = spec.shape, spec.rank
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fs = [torch.randn(n, r, generator=gen, device="cuda") / r ** 0.5
+          for n in shape]
+    engine = ServeEngine(ServingModel(fs), max_batch=SERVE_BATCH,
+                         device="cuda")
+    hists = sc._gen_histories(np.random.default_rng(SEED), shape, 0,
+                              FOLDIN_USERS, FOLDIN_NNZ)
+    bk = engine.history_buckets(hists, 0)
+    bo = omega_view(bk)
+    x = torch.randn(bk.shape[0], r, generator=gen, device="cuda") / r ** 0.5
+    coo = bk.indices[bk.valid]
+    distinct = [int(torch.unique(coo[:, d]).numel()) for d in (1, 2)]
+    factors = [x] + fs[1:]
+    return TileLayout(
+        f"fold-in ({bk.num_blocks} buckets x {bk.capacity} slots, R={r})",
+        SparseTensor.from_buckets(bk), SparseTensor.from_buckets(bo),
+        factors, x,
+        bucket_calls(bk, bo, factors, x, distinct,
+                     ("mttkrp_serve_foldin", "cg_matvec_serve_foldin")))
+
+
+def skewed_layout(torch):
+    """netflix-small's Zipf-skewed mode-0 buckets (phase 7d), R = 8, and
+    TTTP over its COO."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import experiment
+    from repro_torch.launch.roofline import kernel_terms
+    spec = experiment.SPECS["netflix-small"]
+    ds, _ = experiment.ingest_spec(spec, device="cuda")
+    st, r = ds.tensor, spec.rank
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    fs = [torch.randn(d, r, generator=gen, device="cuda") / r ** 0.5
+          for d in spec.shape]
+    bk = st.row_buckets(0, ds.block_rows)
+    bo = ds.omega.row_buckets(0, ds.block_rows)
+    calls = {"tttp": (lambda t: kops.tttp_values(st, fs, tile=t),
+                      lambda: kref.tttp_ref(st.values, st.indices, st.valid,
+                                            fs),
+                      kernel_terms("tttp", slots=st.cap, nd=st.ndim, rank=r,
+                                   valid=st.nnz, factor_rows=spec.shape),
+                      None),
+             **bucket_calls(bk, bo, fs, fs[0], spec.shape[1:],
+                            (None, "cg_matvec_skewed"))}
+    return TileLayout(f"netflix-small ({bk.num_blocks} buckets x "
+                      f"{bk.capacity} slots, R={r})", st, ds.omega, fs,
+                      fs[0], calls)
+
+
+def check_footprint(torch, lay):
+    """10a: every instantiation ``lay``'s lattices launch, the footprint
+    model's registers, static shared memory and CTAs per SM against
+    ``cudaFuncGetAttributes`` and the occupancy calculator (at the model's
+    dynamic shared memory); the card's local (spill) bytes beside the
+    build log's. Returns the rows."""
+    from repro_torch.kernels import _build, footprint
+    from repro_torch.planner import tuner
+    usage = _build.resource_usage()
+    out = {}
+    for family in lay.calls:
+        src = lay.omega if family == "cg_matvec" else lay.st
+        for tile in tuner.LATTICES[family]:
+            geom = footprint.workload_geometry(family, src, lay.factors,
+                                               tile, x=lay.x)
+            est = footprint.estimate_footprint(family, tile, geom)
+            launched, variant, key = footprint.instantiation(family, geom,
+                                                             tile)
+            dyn = est.smem_bytes - est.static_smem
+            card = _build.kernel_attributes(launched, variant,
+                                            tile.per_thread, tile.threads,
+                                            dyn)
+            if est.registers_from != "build log" or \
+                    est.registers != card["registers"] or \
+                    est.static_smem != card["static_smem"] or \
+                    est.blocks_per_sm != card["blocks_per_sm"] or \
+                    card["blocks_per_sm"] < 1 or not est.fits:
+                raise SystemExit(
+                    f"phase 10a: {lay.label} {family} {tile.short()}: the "
+                    f"footprint model ({est.format()}) against the card "
+                    f"{card}")
+            log_u = usage[key]
+            out[(family, tile)] = dict(
+                kernel=est.kernel, registers=card["registers"],
+                smem=dyn + card["static_smem"], local=card["local_bytes"],
+                spill=log_u["spill_stores"] + log_u["spill_loads"],
+                occupancy=card["blocks_per_sm"],
+                model_occupancy=est.blocks_per_sm)
+            log(f"  10a {lay.label} {family:9s} {tile.short():16s} "
+                f"{est.kernel}: {card['registers']} registers (model "
+                f"{est.registers}, {est.registers_from}), shared {dyn} B "
+                f"dynamic + {card['static_smem']} B static (model "
+                f"{est.smem_bytes} B of {est.budget}), local "
+                f"{card['local_bytes']} B (log: stack {log_u['stack']} B, "
+                f"spills {log_u['spill_stores']}/{log_u['spill_loads']} B), "
+                f"{card['blocks_per_sm']} CTAs per SM (model "
+                f"{est.blocks_per_sm})")
+    return out
+
+
+def time_lattice(torch, lay, attrs):
+    """10b: every lattice candidate of every family of ``lay`` held against
+    its plain version (phase 4's tolerance), launched in its own shape, and
+    timed by CUDA events beside its bound and roofline fraction. Returns
+    ``{row name: {tile: numbers}}`` and the table's lines."""
+    from repro_torch import obs
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.roofline import bound
+    from repro_torch.planner import tuner
+    tables = {}
+    with kops.recorded_launches():
+        for family, (call, plain, terms, row) in lay.calls.items():
+            want = plain()
+            b_ms, b_by = bound(terms["bytes"], terms["flops"])
+            cands = {}
+            for tile in tuner.LATTICES[family]:
+                got = call(tile)
+                err = held(torch, f"{lay.label} {family} {tile.short()}",
+                           got, want, where="phase 10b")
+                del got
+                shape = (tile.threads, tile.per_thread)
+                if kops.last_launches()[family] != shape:
+                    raise SystemExit(
+                        f"phase 10b: {lay.label} {family} {tile.short()} "
+                        f"launched {kops.last_launches()[family]}, not "
+                        f"{shape}")
+                rep = obs.profile_fn(call, tile, iters=TILE_REPS,
+                                     name=f"{family}/{tile.short()}",
+                                     terms=terms)
+                ms, frac = rep["measured_s"] * 1e3, rep["frac_roofline"]
+                if frac > MAX_FRAC_ROOFLINE:
+                    raise SystemExit(
+                        f"phase 10b: {lay.label} {family} {tile.short()} "
+                        f"read {frac:.3f} of its roofline bound "
+                        f"({ms:.5f} ms against {b_ms:.5f} ms)")
+                a = attrs[(family, tile)]
+                cands[tile.short()] = dict(
+                    ms=ms, frac_roofline=frac, max_abs_err=err,
+                    registers=a["registers"], spill_bytes=a["spill"],
+                    smem=a["smem"], blocks_per_sm=a["occupancy"])
+            del want
+            best = min(cands, key=lambda k: cands[k]["ms"])
+            default = tuner.LATTICES[family][0].short()
+            log(f"  10b {lay.label} {family}: bound {b_ms:.5f} ms "
+                f"({b_by}); winner {best} {cands[best]['ms']:.4f} ms "
+                f"against the default's {cands[default]['ms']:.4f} ms")
+            for k, v in cands.items():
+                log(f"      {k:16s} {v['ms']:9.4f} ms  frac_roofline "
+                    f"{v['frac_roofline']:.4f}  {v['registers']:3d} regs  "
+                    f"spill {v['spill_bytes']} B  smem {v['smem']} B  "
+                    f"{v['blocks_per_sm']} CTAs/SM  max|err| "
+                    f"{v['max_abs_err']:.2e}")
+            if row is not None:
+                tables[row] = cands
+    torch.cuda.synchronize()
+    return tables
+
+
+def tune_layout(torch, lay):
+    """``tuner.tune_family`` for every family of ``lay``: the tuner's own
+    fenced timings and winner."""
+    from repro_torch.planner import tuner
+    for family in lay.calls:
+        res = tuner.tune_family(family, lay.st, lay.factors, omega=lay.omega,
+                                x=lay.x, iters=5)
+        log(f"  tune_family {lay.label} {family}: winner "
+            f"{res['tile'].short()} ({res['seconds'] * 1e3:.4f} ms fenced, "
+            f"host clock); pruned {res['footprint_pruned']}; timings "
+            f"{[(t, round(v * 1e3, 4)) for t, v in res['timings']]}")
+
+
+def phase_tiles_cache(torch, lay, tmp):
+    """10c: ``ensure_tuned`` at 80M through a plan cache, twice: the first
+    measures every candidate, the second none, with one hit per family,
+    the same winners and the same rates; neither changes the launch
+    counts."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import tile as ktile
+    from repro_torch.planner import cost as pcost
+    from repro_torch.planner import tuner
+    path = os.path.join(tmp, "plan_cache.json")
+    n_cands = sum(len(tuner.LATTICES[f]) for f in ktile.FAMILIES)
+    before = kops.launch_counts()
+    t0 = time.perf_counter()
+    s1 = tuner.ensure_tuned(lay.st, lay.factors, omega=lay.omega,
+                            cache_path=path)
+    t1 = time.perf_counter()
+    tiles1 = tuner.tiles_summary()
+    ktile.reset_tiles()
+    pcost.reset_rates()
+    s2 = tuner.ensure_tuned(lay.st, lay.factors, omega=lay.omega,
+                            cache_path=path)
+    t2 = time.perf_counter()
+    log(f"  10c first ensure_tuned: {t1 - t0:.2f} s, hits {s1['hits']}, "
+        f"measured {s1['measured']}, footprint_pruned "
+        f"{s1['footprint_pruned']}, winners {s1['winners']}, rates "
+        f"{s1['rates']}")
+    log(f"  10c second: {t2 - t1:.3f} s, hits {s2['hits']}, measured "
+        f"{s2['measured']}, winners {s2['winners']}, rates {s2['rates']}")
+    if s1["hits"] != 0 or s1["measured"] != n_cands:
+        raise SystemExit(f"phase 10c: the first ensure_tuned gave {s1}, "
+                         f"not {n_cands} measurements")
+    if s2["measured"] != 0 or s2["hits"] != len(ktile.FAMILIES) or \
+            s2["winners"] != s1["winners"] or s2["rates"] != s1["rates"] or \
+            tuner.tiles_summary() != tiles1:
+        raise SystemExit(f"phase 10c: the cached ensure_tuned gave {s2}, "
+                         f"after {s1}")
+    if kops.launch_counts() != before:
+        raise SystemExit(f"phase 10c: tuning changed the launch counts "
+                         f"{before} -> {kops.launch_counts()}")
+    with open(path) as f:
+        data = json.load(f)
+    if set(data) != {"lattice_version", "entries", "rates"} or \
+            len(data["entries"]) != len(ktile.FAMILIES):
+        raise SystemExit(f"phase 10c: plan cache file {sorted(data)}")
+    log(f"  10c cache keys: {sorted(data['entries'])}")
+
+
+def phase_tiles_cli(torch, tmp):
+    """10d: ``launch.complete`` at 7e's dims: a run at the default tile,
+    then two with ``--plan-cache``; the second measures nothing and its
+    RMSE is within ``CLI_RMSE_TOL`` of the default's. Returns each run's
+    launches."""
+    import contextlib
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import complete
+    argv = ["--algorithm", "als", "--dataset", "function", "--dims",
+            ",".join(map(str, SMALL_DIMS)), "--nnz", str(SMALL_NNZ),
+            "--rank", str(RANK), "--sweeps", str(CLI_SWEEPS), "--seed",
+            str(SEED), "--device", "cuda"]
+    cache = os.path.join(tmp, "cli_plan_cache.json")
+    runs, counts, lines = [], {}, []
+    for label, extra in (("default tile", []),
+                         ("plan cache, first", ["--plan-cache", cache]),
+                         ("plan cache, second", ["--plan-cache", cache])):
+        tee = Tee(sys.stdout)
+        kops.reset_launch_counts()
+        with contextlib.redirect_stdout(tee):
+            runs.append(complete.main(argv + extra))
+        torch.cuda.synchronize()
+        counts[f"tiles cli {label}"] = kops.launch_counts()
+        m = re.search(r"plan-cache: hits=(\d+) measured=(\d+) "
+                      r"footprint_pruned=(\d+)", "".join(tee.parts))
+        lines.append(m and m.group(0))
+    rmse = [r.history[-1][2] for r in runs]
+    log(f"  10d final RMSE {rmse}; plan-cache lines {lines[1:]}; launches "
+        f"{list(counts.values())}")
+    if lines[0] is not None or lines[1] is None or lines[2] is None:
+        raise SystemExit(f"phase 10d: plan-cache lines {lines}")
+    if not lines[2].startswith("plan-cache: hits=3 measured=0 "):
+        raise SystemExit(f"phase 10d: the second run printed {lines[2]}")
+    if abs(rmse[2] - rmse[0]) > CLI_RMSE_TOL:
+        raise SystemExit(f"phase 10d: RMSE {rmse[2]} at the cached tiles, "
+                         f"{rmse[0]} at the default (limit {CLI_RMSE_TOL})")
+    if len({tuple(n.values()) for n in counts.values()}) != 1:
+        raise SystemExit(f"phase 10d: the runs launched {counts}: tuning "
+                         f"must leave the sweeps' counts as they were")
+    return counts
+
+
+def phase_tiles_report(torch, tmp):
+    """10e: ``launch.report --spec netflix-ci --out FILE`` on the card."""
+    from repro_torch.launch import report
+    out = os.path.join(tmp, "report.md")
+    perf = report.main(["--spec", "netflix-ci", "--out", out, "--device",
+                        "cuda"])
+    with open(out) as f:
+        text = f.read()
+    if "## Kernels: achieved vs roofline" not in text or \
+            len(perf["rooflines"]) != 3:
+        raise SystemExit("phase 10e: the report lacks its roofline table")
+    for r in perf["rooflines"]:
+        log(f"  10e {r['name']:20s} tile {r['tile']}: "
+            f"{r['measured_s'] * 1e6:.2f} us, {r['bytes'] / 2**20:.2f} MiB, "
+            f"{r['dominant']}, frac_roofline {r['frac_roofline']:.4f}")
+        if r["frac_roofline"] > MAX_FRAC_ROOFLINE:
+            raise SystemExit(f"phase 10e: {r['name']} read above its bound")
+    log(f"  10e plan rows: {len(perf['plans'])} ({perf['device']})")
+
+
+def phase_tiles(torch, run):
+    """Phase 10 on phase 3's tensor (before it is freed), the fold-in
+    layout and netflix-small's skewed buckets. Leaves the default tiles and
+    the data-sheet rates installed. Returns the launches of 10d's runs and
+    the tile tables of the JSON rows."""
+    from repro_torch.kernels import tile as ktile
+    from repro_torch.planner import cost as pcost
+    t0 = time.perf_counter()
+    log("phase 10: kernel tiles: the footprint model against the card, "
+        "every lattice candidate held and timed, the plan cache, the CLI "
+        "and the report")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tiles_")
+    tables = {}
+    try:
+        layouts = [main_layout(torch, run), foldin_layout(torch),
+                   skewed_layout(torch)]
+        for lay in layouts:
+            attrs = check_footprint(torch, lay)
+            tables.update(time_lattice(torch, lay, attrs))
+        for lay in layouts[1:]:
+            tune_layout(torch, lay)
+        ktile.reset_tiles()
+        phase_tiles_cache(torch, layouts[0], tmp)
+        del layouts
+        ktile.reset_tiles()
+        pcost.reset_rates()
+        counts = phase_tiles_cli(torch, tmp)
+        ktile.reset_tiles()
+        pcost.reset_rates()
+        phase_tiles_report(torch, tmp)
+    finally:
+        ktile.reset_tiles()
+        pcost.reset_rates()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"phase 10: passed in {time.perf_counter() - t0:.1f} s; peak memory "
+        f"so far {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return counts, tables
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1961,9 +2396,11 @@ def main():
         phase_profile(torch, run, path)
     solver_counts, solver_rows = phase_solvers(torch, run)
     kernels += solver_rows
-    # phase 9a-9d run on phase 3's dataset too, before it is freed
+    # phase 9a-9d and phase 10 run on phase 3's dataset too, before it is
+    # freed
     planner_counts = phase_planner(torch, run)
-    # free phase 3's dataset (phases 6 and 9 ran on it) before phase 7
+    tile_counts, tile_tables = phase_tiles(torch, run)
+    # free phase 3's dataset (phases 6, 9 and 10 ran on it) before phase 7
     del run
     torch.cuda.empty_cache()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1976,15 +2413,18 @@ def main():
         planner_counts.update(phase_planner_serve(torch, dump))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # phase 10: each kernel's launches in every run of phases 3, 6, 7, 8
-    # and 9, each counted from zero
+    # each kernel's launches in every run of phases 3, 6, 7, 8, 9 and 10,
+    # each counted from zero, and phase 10's lattice timings at the row's
+    # layout
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
              **solver_counts, **stream_counts, **serve_counts,
-             **planner_counts}
+             **planner_counts, **tile_counts}
     for row in kernels:
         group = next(g for g in ("tttp", "mttkrp", "cg_matvec")
                      if row["name"].startswith(g))
         row["path_launches"] = {p: n[group] for p, n in paths.items()}
+        if row["name"] in tile_tables:
+            row["tiles"] = tile_tables[row["name"]]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()

@@ -18,25 +18,22 @@
 // (a slot's x row is its key's row). The CTA walks the capacity axis
 // SLOTS * blockDim.x slots per step, SLOTS slots per thread at a stride of
 // blockDim.x, so every slot stream is read coalesced and each thread has
-// SLOTS slots' gathers in flight at once. A slot's factor rows are gathered
-// as float4s with the R loop unrolled at compile time (RS / 4 loads per
-// row); padding slots carry index 0, so their gathers stay in bounds and
-// their key adds them nowhere. Offsets are 64-bit.
+// SLOTS slots' gathers in flight at once. SLOTS and blockDim.x are the
+// launch's tile (KernelTile.per_thread and .threads, kernels/tile.py), SLOTS
+// a template depth instantiated for 1, 2 and 4. A slot's factor rows are
+// gathered as float4s with the R loop unrolled at compile time (RS / 4
+// loads per row); padding slots carry index 0, so their gathers stay in
+// bounds and their key adds them nowhere. Offsets are 64-bit.
 #pragma once
 
 #include "scatter_rows.cuh"
 
 namespace {
 
-// Bucket slots a thread takes per step of the capacity loop. Chosen by
-// timing the main path's shapes on the H100: 1, 3 and 4 slots were slower
-// (PERF.md).
-constexpr int SLOTS = 2;
-
 // The explicit minimum of 1 CTA per SM is not the default: nvcc compiles
 // the body differently without it, and the MTTKRP then ran 3-5 % slower
 // at the main path's shapes on the H100 (PERF.md).
-template <int RMAX, bool FUSED>
+template <int RMAX, bool FUSED, int SLOTS>
 __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
     const float* __restrict__ values, const int* __restrict__ indices,
     const int* __restrict__ local_row, const unsigned char* __restrict__ valid,
@@ -136,8 +133,9 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
   }
 }
 
-template <int RMAX, bool FUSED>
-cudaError_t launch_rmax(const void* values, const void* indices,
+
+template <int RMAX, bool FUSED, int SLOTS>
+cudaError_t launch_tile(const void* values, const void* indices,
                         const void* local_row, const void* valid,
                         long long nb, long long C, int nd, int mode,
                         const FactorTable& f, const void* x, long long x_rows,
@@ -146,11 +144,11 @@ cudaError_t launch_rmax(const void* values, const void* indices,
   const size_t smem = sizeof(float) * block_rows * RS * (FUSED ? 2 : 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bucket_rows_kernel<RMAX, FUSED>,
+        bucket_rows_kernel<RMAX, FUSED, SLOTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  bucket_rows_kernel<RMAX, FUSED>
+  bucket_rows_kernel<RMAX, FUSED, SLOTS>
       <<<static_cast<unsigned>(nb), threads, smem, stream>>>(
           static_cast<const float*>(values), static_cast<const int*>(indices),
           static_cast<const int*>(local_row),
@@ -160,9 +158,35 @@ cudaError_t launch_rmax(const void* values, const void* indices,
   return cudaGetLastError();
 }
 
+// The instantiation for the tile's per-thread depth (1, 2 or 4, checked by
+// the caller).
+template <int RMAX, bool FUSED>
+cudaError_t launch_rmax(const void* values, const void* indices,
+                        const void* local_row, const void* valid,
+                        long long nb, long long C, int nd, int mode,
+                        const FactorTable& f, const void* x, long long x_rows,
+                        int R, int RS, int block_rows, void* out, int threads,
+                        int per_thread, cudaStream_t stream) {
+  switch (per_thread) {
+    case 1:
+      return launch_tile<RMAX, FUSED, 1>(values, indices, local_row, valid,
+                                         nb, C, nd, mode, f, x, x_rows, R, RS,
+                                         block_rows, out, threads, stream);
+    case 2:
+      return launch_tile<RMAX, FUSED, 2>(values, indices, local_row, valid,
+                                         nb, C, nd, mode, f, x, x_rows, R, RS,
+                                         block_rows, out, threads, stream);
+    default:
+      return launch_tile<RMAX, FUSED, 4>(values, indices, local_row, valid,
+                                         nb, C, nd, mode, f, x, x_rows, R, RS,
+                                         block_rows, out, threads, stream);
+  }
+}
+
 // Checks the arguments, then launches bucket_rows_kernel compiled for the
-// least RMAX of 16, 32, 64 and 128 that holds RS. `x` is read only when
-// FUSED. Returns cudaErrorInvalidValue for what the kernel does not take.
+// least RMAX of 16, 32, 64 and 128 that holds RS and for the tile's
+// per-thread depth. `x` is read only when FUSED. Returns
+// cudaErrorInvalidValue for what the kernel does not take.
 template <bool FUSED>
 cudaError_t launch_bucket_rows(const void* values, const void* indices,
                                const void* local_row, const void* valid,
@@ -170,10 +194,11 @@ cudaError_t launch_bucket_rows(const void* values, const void* indices,
                                void* const* factors, const void* x,
                                long long x_rows, int R, int RS,
                                int block_rows, void* out, int threads,
-                               void* stream) {
+                               int per_thread, void* stream) {
   if (nd < 1 || nd > MAX_ND || mode < 0 || mode >= nd || R < 1 || RS < R ||
       RS % 4 != 0 || RS > 128 || block_rows < 1 || threads < 32 ||
-      threads > MAX_THREADS || threads % 32 != 0 || nb >= (1LL << 31) ||
+      threads > MAX_THREADS || threads % 32 != 0 ||
+      !valid_depth(per_thread) || nb >= (1LL << 31) ||
       (FUSED && (x == nullptr || !aligned16(x)))) {
     return cudaErrorInvalidValue;
   }
@@ -186,21 +211,52 @@ cudaError_t launch_bucket_rows(const void* values, const void* indices,
   if (RS <= 16) {
     return launch_rmax<16, FUSED>(values, indices, local_row, valid, nb, C,
                                   nd, mode, f, x, x_rows, R, RS, block_rows,
-                                  out, threads, s);
+                                  out, threads, per_thread, s);
   }
   if (RS <= 32) {
     return launch_rmax<32, FUSED>(values, indices, local_row, valid, nb, C,
                                   nd, mode, f, x, x_rows, R, RS, block_rows,
-                                  out, threads, s);
+                                  out, threads, per_thread, s);
   }
   if (RS <= 64) {
     return launch_rmax<64, FUSED>(values, indices, local_row, valid, nb, C,
                                   nd, mode, f, x, x_rows, R, RS, block_rows,
-                                  out, threads, s);
+                                  out, threads, per_thread, s);
   }
   return launch_rmax<128, FUSED>(values, indices, local_row, valid, nb, C, nd,
                                  mode, f, x, x_rows, R, RS, block_rows, out,
-                                 threads, s);
+                                 threads, per_thread, s);
+}
+
+template <int RMAX, bool FUSED>
+const void* bucket_rows_entry(int per_thread) {
+  switch (per_thread) {
+    case 1:
+      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 1>);
+    case 2:
+      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 2>);
+    case 4:
+      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 4>);
+    default:
+      return nullptr;
+  }
+}
+
+// func_attributes (common.cuh) of bucket_rows_kernel<rmax, FUSED,
+// per_thread>; an instantiation that does not exist is
+// cudaErrorInvalidValue.
+template <bool FUSED>
+cudaError_t bucket_rows_attributes(int rmax, int per_thread, int threads,
+                                   long long smem, int* out) {
+  const void* fn = nullptr;
+  switch (rmax) {
+    case 16: fn = bucket_rows_entry<16, FUSED>(per_thread); break;
+    case 32: fn = bucket_rows_entry<32, FUSED>(per_thread); break;
+    case 64: fn = bucket_rows_entry<64, FUSED>(per_thread); break;
+    case 128: fn = bucket_rows_entry<128, FUSED>(per_thread); break;
+    default: break;
+  }
+  return func_attributes(fn, threads, smem, out);
 }
 
 }  // namespace

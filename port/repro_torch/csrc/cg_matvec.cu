@@ -20,17 +20,26 @@
 // intermediate of the two-kernel composition never exists. The factor rows
 // are gathered as 16-byte loads from copies padded to a 16-byte row stride;
 // the bucket's block_rows rows of x are loaded into shared memory once per
-// CTA, not gathered per slot; two slots per thread per step keep loads in
-// flight; per-thread running sums reach the CTA's shared output rows only
-// when a thread's row changes (scatter_rows.cuh). No global atomics.
+// CTA, not gathered per slot; the tile's slots per thread per step (two by
+// default) keep loads in flight; per-thread running sums reach the CTA's
+// shared output rows only when a thread's row changes (scatter_rows.cuh).
+// No global atomics.
 #include "bucket_rows.cuh"
 
 extern "C" int repro_cg_matvec_bucketed_f32(
     const void* omega, const void* indices, const void* local_row,
     const void* valid, long long nb, long long C, int nd, int mode,
     void** factors, const void* x, long long x_rows, int R, int RS,
-    int block_rows, void* out, int threads, void* stream) {
-  return launch_bucket_rows<true>(omega, indices, local_row, valid, nb, C, nd,
-                                  mode, factors, x, x_rows, R, RS, block_rows,
-                                  out, threads, stream);
+    int block_rows, void* out, int threads, int per_thread, void* stream) {
+  return launch_bucket_rows<true>(omega, indices, local_row, valid, nb, C,
+                                  nd, mode, factors, x, x_rows, R, RS,
+                                  block_rows, out, threads, per_thread,
+                                  stream);
+}
+
+// bucket_rows_kernel<rmax, true, per_thread>'s attributes, for
+// repro_kernel_attributes (attributes.cu).
+cudaError_t cg_matvec_attributes(int rmax, int per_thread, int threads,
+                                 long long smem, int* out) {
+  return bucket_rows_attributes<true>(rmax, per_thread, threads, smem, out);
 }

@@ -17,17 +17,26 @@
 // What the design does about it: the body shared with the fused matvec,
 // bucket_rows.cuh with FUSED = false (z[n] = v[n], no dot product). One CTA
 // per bucket, shared-memory output rows, no global atomics; row gathers as
-// 16-byte loads from factors padded to a 16-byte row stride; two slots per
-// thread per step for loads in flight; per-thread running sums flushed to
-// the shared rows only when a thread's row changes (scatter_rows.cuh).
+// 16-byte loads from factors padded to a 16-byte row stride; the tile's
+// slots per thread per step (two by default) for loads in flight;
+// per-thread running sums flushed to the shared rows only when a thread's
+// row changes (scatter_rows.cuh).
 #include "bucket_rows.cuh"
 
 extern "C" int repro_mttkrp_bucketed_f32(
     const void* values, const void* indices, const void* local_row,
     const void* valid, long long nb, long long C, int nd, int mode,
     void** factors, const void* x, long long x_rows, int R, int RS,
-    int block_rows, void* out, int threads, void* stream) {
+    int block_rows, void* out, int threads, int per_thread, void* stream) {
   return launch_bucket_rows<false>(values, indices, local_row, valid, nb, C,
                                    nd, mode, factors, x, x_rows, R, RS,
-                                   block_rows, out, threads, stream);
+                                   block_rows, out, threads, per_thread,
+                                   stream);
+}
+
+// bucket_rows_kernel<rmax, false, per_thread>'s attributes, for
+// repro_kernel_attributes (attributes.cu).
+cudaError_t mttkrp_attributes(int rmax, int per_thread, int threads,
+                              long long smem, int* out) {
+  return bucket_rows_attributes<false>(rmax, per_thread, threads, smem, out);
 }

@@ -29,9 +29,6 @@
 
 namespace {
 
-// Nonzeros a thread takes per step. Chosen by timing the main path's shapes
-// on the H100 (PERF.md).
-constexpr int NZ = 2;
 // float4 columns of a row gathered per pass over R (16 columns)
 constexpr int QB = 4;
 
@@ -43,7 +40,9 @@ struct PresentFactors {
   int col[MAX_ND];
 };
 
-template <int NP>
+// NZ, the nonzeros a thread takes per step, is the launch's tile
+// (KernelTile.per_thread in kernels/tile.py), instantiated for 1, 2 and 4.
+template <int NP, int NZ>
 __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
     const float* __restrict__ values, const int* __restrict__ indices,
     const unsigned char* __restrict__ valid, long long m, int nd,
@@ -109,17 +108,47 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
   }
 }
 
-template <int NP>
-cudaError_t launch_np(const float* values, const int* indices,
+template <int NP, int NZ>
+cudaError_t launch_nz(const float* values, const int* indices,
                       const unsigned char* valid, long long m, int nd,
                       const PresentFactors& f, int R, int RS, float* out,
                       int threads, cudaStream_t stream) {
   const long long step = static_cast<long long>(NZ) * threads;
   long long blocks = (m + step - 1) / step;
   if (blocks > MAX_GRID) blocks = MAX_GRID;
-  tttp_kernel<NP><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+  tttp_kernel<NP, NZ><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       values, indices, valid, m, nd, f, R, RS, out);
   return cudaGetLastError();
+}
+
+// The instantiation for the tile's per-thread depth (1, 2 or 4, checked by
+// the caller).
+template <int NP>
+cudaError_t launch_np(const float* values, const int* indices,
+                      const unsigned char* valid, long long m, int nd,
+                      const PresentFactors& f, int R, int RS, float* out,
+                      int threads, int per_thread, cudaStream_t stream) {
+  switch (per_thread) {
+    case 1:
+      return launch_nz<NP, 1>(values, indices, valid, m, nd, f, R, RS, out,
+                              threads, stream);
+    case 2:
+      return launch_nz<NP, 2>(values, indices, valid, m, nd, f, R, RS, out,
+                              threads, stream);
+    default:
+      return launch_nz<NP, 4>(values, indices, valid, m, nd, f, R, RS, out,
+                              threads, stream);
+  }
+}
+
+template <int NP>
+const void* tttp_entry(int per_thread) {
+  switch (per_thread) {
+    case 1: return reinterpret_cast<const void*>(tttp_kernel<NP, 1>);
+    case 2: return reinterpret_cast<const void*>(tttp_kernel<NP, 2>);
+    case 4: return reinterpret_cast<const void*>(tttp_kernel<NP, 4>);
+    default: return nullptr;
+  }
 }
 
 }  // namespace
@@ -130,9 +159,10 @@ cudaError_t launch_np(const float* values, const int* indices,
 extern "C" int repro_tttp_f32(const void* values, const void* indices,
                               const void* valid, long long m, int nd,
                               void** factors, int R, int RS, void* out,
-                              int threads, void* stream) {
+                              int threads, int per_thread, void* stream) {
   if (nd < 1 || nd > MAX_ND || R < 1 || RS % 4 != 0 || RS < (R + 3) / 4 * 4 ||
-      threads < 32 || threads > MAX_THREADS || threads % 32 != 0) {
+      threads < 32 || threads > MAX_THREADS || threads % 32 != 0 ||
+      !valid_depth(per_thread)) {
     return cudaErrorInvalidValue;
   }
   PresentFactors f;
@@ -153,15 +183,36 @@ extern "C" int repro_tttp_f32(const void* values, const void* indices,
   const auto* ix = static_cast<const int*>(indices);
   const auto* ok = static_cast<const unsigned char*>(valid);
   auto* o = static_cast<float*>(out);
+  const int p = per_thread;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (np) {
-    case 1: return launch_np<1>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 2: return launch_np<2>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 3: return launch_np<3>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 4: return launch_np<4>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 5: return launch_np<5>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 6: return launch_np<6>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    case 7: return launch_np<7>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
-    default: return launch_np<8>(v, ix, ok, m, nd, f, R, RS, o, threads, s);
+    case 1: return launch_np<1>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 2: return launch_np<2>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 3: return launch_np<3>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 4: return launch_np<4>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 5: return launch_np<5>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 6: return launch_np<6>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 7: return launch_np<7>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    default: return launch_np<8>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
   }
+}
+
+// tttp_kernel<np, per_thread>'s attributes, for repro_kernel_attributes
+// (attributes.cu); an instantiation that does not exist is
+// cudaErrorInvalidValue.
+cudaError_t tttp_attributes(int np, int per_thread, int threads,
+                            long long smem, int* out) {
+  const void* fn = nullptr;
+  switch (np) {
+    case 1: fn = tttp_entry<1>(per_thread); break;
+    case 2: fn = tttp_entry<2>(per_thread); break;
+    case 3: fn = tttp_entry<3>(per_thread); break;
+    case 4: fn = tttp_entry<4>(per_thread); break;
+    case 5: fn = tttp_entry<5>(per_thread); break;
+    case 6: fn = tttp_entry<6>(per_thread); break;
+    case 7: fn = tttp_entry<7>(per_thread); break;
+    case 8: fn = tttp_entry<8>(per_thread); break;
+    default: break;
+  }
+  return func_attributes(fn, threads, smem, out);
 }

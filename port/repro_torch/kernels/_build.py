@@ -9,18 +9,25 @@ source is rebuilt and an unchanged one is reused. Nothing is built at
 import: the first kernel launch builds.
 
 Every C entry point launches one kernel on the given stream and returns
-``cudaGetLastError()``; :func:`launch` raises if that is not 0.
+``cudaGetLastError()``; :func:`launch` raises if that is not 0. A launch
+takes its threads per CTA and per-thread depth from a
+``kernels.tile.KernelTile``. :func:`resource_usage` reads the compiler's
+registers and spills per instantiation from the build log, and
+:func:`kernel_attributes` asks the card (``cudaFuncGetAttributes`` and the
+occupancy calculator) for the same instantiation.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import Dict, Optional, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
@@ -29,28 +36,28 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               *ARCH_FLAGS)
 
-# threads per CTA of every launch; the kernels are compiled for at most this
-# many (MAX_THREADS in csrc/common.cuh); the bucketed ones take SLOTS
-# (csrc/bucket_rows.cuh) times this many bucket slots per step, TTTP NZ
-# (csrc/tttp.cu) times this many nonzeros
-THREADS = 256
-
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
 _BUCKETED = (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _P, _L, _I, _I, _I, _P,
-             _I, _P)
+             _I, _I, _P)
 SIGNATURES = {
     # values, indices, valid, m, nd, factors[nd], R, RS (padded row
-    # stride), out, threads, stream
-    "repro_tttp_f32": (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _P),
+    # stride), out, threads, per_thread, stream
+    "repro_tttp_f32": (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _I, _P),
     # values (ω for the matvec), indices, local_row, valid, nb, C, nd, mode,
     # factors[nd], x, x_rows, R, RS (padded row stride), block_rows, out,
-    # threads, stream; the MTTKRP ignores x and x_rows
+    # threads, per_thread, stream; the MTTKRP ignores x and x_rows
     "repro_mttkrp_bucketed_f32": _BUCKETED,
     "repro_cg_matvec_bucketed_f32": _BUCKETED,
+    # family, variant (NP or RMAX), per_thread, threads, dynamic shared
+    # bytes, out[5] (csrc/attributes.cu)
+    "repro_kernel_attributes": (_I, _I, _I, _I, _L,
+                                ctypes.POINTER(ctypes.c_int)),
 }
+# the family codes of repro_kernel_attributes
+FAMILY_CODES = {"tttp": 0, "mttkrp": 1, "cg_matvec": 2}
 
 _lock = threading.Lock()
 _lib = None
@@ -123,6 +130,73 @@ def build_log() -> str:
     library was built elsewhere)."""
     log = Path(str(library_path()) + ".log")
     return log.read_text() if log.exists() else ""
+
+
+Instantiation = Tuple[str, Tuple[int, ...]]
+
+
+def kernel_name(mangled: str) -> Optional[Instantiation]:
+    """``("tttp_kernel", (3, 2))`` or ``("bucket_rows_kernel", (16, 1,
+    2))`` (a bool argument as 0 or 1) from a mangled entry-function name,
+    None for any other function."""
+    m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", mangled)
+    if m is None:
+        return None
+    return m.group(1), tuple(int(a) for a in
+                             re.findall(r"L[a-z](\d+)E", m.group(2)))
+
+
+def resource_usage(log: Optional[str] = None
+                   ) -> Dict[Instantiation, Dict[str, int]]:
+    """Per kernel instantiation, what ``-Xptxas -v`` reported in ``log``
+    (default: the current build's, :func:`build_log`): ``registers`` per
+    thread, static ``smem`` bytes, ``stack`` (local bytes per thread),
+    ``spill_stores`` and ``spill_loads`` bytes. Empty when there is no
+    build log."""
+    text = build_log() if log is None else log
+    usage: Dict[Instantiation, Dict[str, int]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for |$)", line.strip())
+        if m is not None:
+            cur = kernel_name(m.group(1))
+            if cur is not None:
+                usage.setdefault(cur, {"registers": 0, "smem": 0, "stack": 0,
+                                       "spill_stores": 0, "spill_loads": 0})
+            continue
+        if cur is None:
+            continue
+        rec = usage[cur]
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            found = re.search(pat, line)
+            if found:
+                rec[key] = int(found.group(1))
+    return usage
+
+
+def kernel_attributes(family: str, variant: int, per_thread: int,
+                      threads: int, smem: int = 0) -> Dict[str, int]:
+    """What the card says of one instantiation (``variant`` is TTTP's NP or
+    the bucketed body's RMAX): ``registers``, ``local_bytes`` and
+    ``static_smem`` per ``cudaFuncGetAttributes``, ``max_threads``, and
+    ``blocks_per_sm``, the CTAs of ``threads`` threads and ``smem`` bytes of
+    dynamic shared memory one SM holds. Raises if the instantiation does
+    not exist."""
+    out = (ctypes.c_int * 5)()
+    handle = lib()
+    err = handle.repro_kernel_attributes(FAMILY_CODES[family], variant,
+                                         per_thread, threads, smem, out)
+    if err != 0:
+        msg = handle.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"kernel attributes of {family} <{variant}, "
+                           f"{per_thread}>: CUDA error {err} ({msg})")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "max_threads", "blocks_per_sm"), out))
 
 
 def lib() -> ctypes.CDLL:

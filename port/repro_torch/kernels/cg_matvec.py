@@ -10,7 +10,9 @@ MTTKRP half (``y[i] += z[n]·KR[n]``). The factors and ``x`` reach the
 kernel as zero-padded copies with a 16-byte row stride
 (``kernels.mttkrp.pad_rows``). It takes R up to ``kernels.mttkrp.MAX_RANK``
 and refuses a wider one: ``kernels.ops.cg_matvec_bucketed`` runs wider R as
-TTTP then MTTKRP. ``launches`` counts the kernel's launches.
+TTTP then MTTKRP. The launch shape is a ``kernels.tile.KernelTile``.
+``launches`` counts the kernel's launches and ``last_launch`` holds the
+(threads, per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -19,22 +21,26 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.kernels.mttkrp import check_buckets, launch_bucketed
+from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
 launches = 0
+last_launch = None
 
 
 def cg_matvec_cuda(buckets: RowBlockBuckets,
                    factors: Sequence[Optional[torch.Tensor]],
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor,
+                   tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """``buckets.values`` hold the weights ω (the Ω indicator for ALS).
     Returns (nb·block_rows, R) float32; callers slice to the true row
     count."""
-    global launches
+    global launches, last_launch
     r = x.shape[1]
     table = check_buckets(buckets, factors, r, x)
     out = launch_bucketed("repro_cg_matvec_bucketed_f32", buckets, table, x,
-                          r)
+                          r, tile)
     if buckets.num_blocks:
         launches += 1
+        last_launch = (tile.threads, tile.per_thread)
     return out

@@ -14,7 +14,10 @@ tile (:func:`column_tiles`), each over a padded copy of the tile's columns,
 and joins the tiles' outputs. (Passing a tile as a pointer into the full
 padded rows would need a row stride apart from the width the body computes,
 and separating the two changed how nvcc compiled the body for R ≤ 128.)
-``launches`` counts the MTTKRP kernel's launches.
+The launch shape (threads per CTA, slots per thread) is a
+``kernels.tile.KernelTile``. ``launches`` counts the MTTKRP kernel's
+launches and ``last_launch`` holds the (threads, per_thread) of the last
+one.
 """
 from __future__ import annotations
 
@@ -24,10 +27,9 @@ import torch
 
 from repro_torch.core.utils import round_up
 from repro_torch.kernels import _build
+from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
-# dynamic shared memory one CTA may use on Hopper (227 KB)
-MAX_SMEM_BYTES = 232_448
 # the widest padded row one launch of the bucketed body takes: it keeps a
 # Khatri-Rao row and a running sum in registers, compiled for widths up to
 # this
@@ -36,6 +38,7 @@ MAX_RANK = 128
 ROW_ALIGN = 4
 
 launches = 0
+last_launch = None
 
 
 def pad_rows(t: torch.Tensor) -> torch.Tensor:
@@ -84,11 +87,12 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
                          dev, (nb, c))
     _build.check_operand("bucket valid", buckets.valid, torch.bool, dev,
                          (nb, c))
-    width = round_up(min(r, MAX_RANK), ROW_ALIGN)
-    smem = 4 * buckets.block_rows * width * (1 if x is None else 2)
-    if smem > MAX_SMEM_BYTES:
+    # here, not at the top: footprint imports this module's MAX_RANK
+    from repro_torch.kernels import footprint
+    smem = footprint.dynamic_smem_bytes(buckets.block_rows, r, x is not None)
+    if smem > footprint.SMEM_PER_BLOCK_OPTIN:
         raise ValueError(f"{smem} B of shared-memory rows exceed the "
-                         f"{MAX_SMEM_BYTES} B a CTA may use")
+                         f"{footprint.SMEM_PER_BLOCK_OPTIN} B a CTA may use")
     table = [None if d == buckets.mode else f for d, f in enumerate(factors)]
     _build.check_factors(table, r, torch.float32, dev)
     if x is not None:
@@ -98,12 +102,13 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
 
 def launch_bucketed(name: str, buckets: RowBlockBuckets,
                     table: Sequence[Optional[torch.Tensor]],
-                    x: Optional[torch.Tensor], r: int) -> torch.Tensor:
+                    x: Optional[torch.Tensor], r: int,
+                    tile: KernelTile) -> torch.Tensor:
     """Launch the bucketed kernel ``name`` (the fused matvec when ``x`` is
     given) once over the ``r`` ≤ ``MAX_RANK`` columns of a factor table from
-    :func:`check_buckets`, on zero-padded copies of the factors and x.
-    Returns (nb·block_rows, r) float32; launches nothing when there are no
-    buckets."""
+    :func:`check_buckets`, on zero-padded copies of the factors and x, in
+    ``tile``'s launch shape. Returns (nb·block_rows, r) float32; launches
+    nothing when there are no buckets."""
     nb, c = buckets.values.shape
     dev = buckets.values.device
     out = torch.empty(nb * buckets.block_rows, r, dtype=torch.float32,
@@ -121,18 +126,19 @@ def launch_bucketed(name: str, buckets: RowBlockBuckets,
                       None if xp is None else xp.data_ptr(),
                       0 if xp is None else xp.shape[0], r,
                       round_up(r, ROW_ALIGN), buckets.block_rows,
-                      out.data_ptr(), _build.THREADS,
+                      out.data_ptr(), tile.threads, tile.per_thread,
                       torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def mttkrp_cuda(buckets: RowBlockBuckets,
-                factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+                factors: Sequence[Optional[torch.Tensor]],
+                tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """Bucketed MTTKRP; factors at ``buckets.mode`` and None factors are
     skipped. One launch per column tile (:func:`column_tiles`), the tiles'
     outputs joined by columns. Returns (nb·block_rows, R) float32; callers
     slice to ``shape[mode]`` rows."""
-    global launches
+    global launches, last_launch
     other = [f for d, f in enumerate(factors)
              if d != buckets.mode and f is not None]
     if not other:
@@ -141,10 +147,11 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
     table = check_buckets(buckets, factors, r, None)
     outs = []
     for c0, w in column_tiles(r):
-        # a tile of all R columns is the factor itself (same storage)
-        tile = [None if f is None else f[:, c0:c0 + w] for f in table]
+        # a column tile of all R columns is the factor itself (same storage)
+        cols = [None if f is None else f[:, c0:c0 + w] for f in table]
         outs.append(launch_bucketed("repro_mttkrp_bucketed_f32", buckets,
-                                    tile, None, w))
+                                    cols, None, w, tile))
         if buckets.num_blocks:
             launches += 1
+            last_launch = (tile.threads, tile.per_thread)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

@@ -14,8 +14,17 @@ padded the nonzero and capacity
 axes to its Pallas tile multiples; the CUDA kernels mask their ragged edge
 themselves, so those pads are not carried over.
 
-Each kernel module counts its launches in a plain integer ``launches``;
-:func:`launch_counts` reads them and :func:`reset_launch_counts` zeroes them.
+Launch shapes: each wrapper takes ``tile=``, a ``kernels.tile.KernelTile``
+(threads per CTA, slots or nonzeros per thread); an explicit tile wins,
+otherwise the family's entry of the process-wide table
+(``tile.current_tile``, where ``planner.tuner`` installs measured winners).
+The CPU's plain versions ignore the launch knobs. Each call runs in an
+``obs`` span ``kernel/<family>`` that carries ``tile=<short>``.
+
+Each kernel module counts its launches in a plain integer ``launches`` and
+keeps the (threads, per_thread) of its last launch in ``last_launch``
+(:func:`last_launches`); :func:`launch_counts` reads the counts and
+:func:`reset_launch_counts` zeroes them.
 A wrapper called while a CUDA graph captures launches nothing: the graph
 launches its kernels at each replay. :func:`recorded_launches` takes such
 calls back out of the counts and hands them to the caller, which adds them
@@ -29,10 +38,12 @@ from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.kernels import cg_matvec as kcg
 from repro_torch.kernels import mttkrp as kmttkrp
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import tile as ktile
 from repro_torch.kernels import tttp as ktttp
 
 _MODULES = {"tttp": ktttp, "mttkrp": kmttkrp, "cg_matvec": kcg}
@@ -45,6 +56,12 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+
+
+def last_launches() -> Dict[str, Optional[tuple]]:
+    """Per kernel, the (threads, per_thread) of its last launch (None
+    before the first): what shows that a tile reached the kernel."""
+    return {name: mod.last_launch for name, mod in _MODULES.items()}
 
 
 def add_launches(counts: Dict[str, int]) -> None:
@@ -73,6 +90,11 @@ def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
 
 
+def _resolve_tile(family: str,
+                  tile: Optional[ktile.KernelTile]) -> ktile.KernelTile:
+    return tile if tile is not None else ktile.current_tile(family)
+
+
 def _refuse_grad(kernel: str, *tensors) -> None:
     """The CUDA kernels have no backward (nor have the reference's Pallas
     kernels): with grad mode on, an input that requires grad raises rather
@@ -89,24 +111,28 @@ def _refuse_grad(kernel: str, *tensors) -> None:
 
 
 def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
-          factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+          factors: Sequence[Optional[torch.Tensor]],
+          tile: Optional[ktile.KernelTile]) -> torch.Tensor:
     """TTTP over flat (m,) slots, 0 where ``valid`` is false. Vector factors
     are promoted to single-column matrices."""
     factors = [None if f is None else (f[:, None] if f.dim() == 1 else f)
                for f in factors]
-    if not _on_card(values):
-        return kref.tttp_ref(values, indices, valid, factors)
-    _refuse_grad("TTTP", values, *factors)
-    return ktttp.tttp_cuda(values, indices, valid, factors)
+    t = _resolve_tile("tttp", tile)
+    with obs.span("kernel/tttp", m=values.shape[0], tile=t.short()) as sp:
+        if not _on_card(values):
+            return sp.fence(kref.tttp_ref(values, indices, valid, factors))
+        _refuse_grad("TTTP", values, *factors)
+        return sp.fence(ktttp.tttp_cuda(values, indices, valid, factors, t))
 
 
-def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]]
-                ) -> torch.Tensor:
+def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]],
+                tile: Optional[ktile.KernelTile] = None) -> torch.Tensor:
     """TTTP output values for a padded-COO SparseTensor, 0 on padding."""
-    return _tttp(st.values, st.indices, st.valid, factors)
+    return _tttp(st.values, st.indices, st.valid, factors, tile)
 
 
-def tttp_bucket_values(buckets, factors: Sequence[Optional[torch.Tensor]]
+def tttp_bucket_values(buckets, factors: Sequence[Optional[torch.Tensor]],
+                       tile: Optional[ktile.KernelTile] = None
                        ) -> torch.Tensor:
     """TTTP over a CCSR bucket view (``RowBlockBuckets``): its nb·C slots
     flattened, so the same kernel runs on them. Returns (nb, C) in bucket
@@ -115,7 +141,7 @@ def tttp_bucket_values(buckets, factors: Sequence[Optional[torch.Tensor]]
     nb, c, nd = buckets.indices.shape
     out = _tttp(buckets.values.reshape(nb * c),
                 buckets.indices.reshape(nb * c, nd),
-                buckets.valid.reshape(nb * c), factors)
+                buckets.valid.reshape(nb * c), factors, tile)
     return out.view(nb, c)
 
 
@@ -124,22 +150,27 @@ def tttp(st: SparseTensor, factors) -> SparseTensor:
 
 
 def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
-                    num_rows: Optional[int] = None) -> torch.Tensor:
+                    num_rows: Optional[int] = None,
+                    tile: Optional[ktile.KernelTile] = None) -> torch.Tensor:
     """All-at-once MTTKRP over ingest-time buckets; returns (num_rows, R).
     On the card any R: one launch per column tile of at most
     ``kernels.mttkrp.MAX_RANK`` columns."""
     num_rows = num_rows or buckets.shape[buckets.mode]
-    if not _on_card(buckets.values):
-        out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
-                                       buckets.local_row, factors,
-                                       buckets.mode, buckets.block_rows)
-        return out[:num_rows]
-    _refuse_grad("MTTKRP", buckets.values, *factors)
-    return kmttkrp.mttkrp_cuda(buckets, factors)[:num_rows]
+    t = _resolve_tile("mttkrp", tile)
+    with obs.span("kernel/mttkrp_bucketed", mode=buckets.mode,
+                  rows=num_rows, tile=t.short()) as sp:
+        if not _on_card(buckets.values):
+            out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
+                                           buckets.local_row, factors,
+                                           buckets.mode, buckets.block_rows)
+            return sp.fence(out[:num_rows])
+        _refuse_grad("MTTKRP", buckets.values, *factors)
+        return sp.fence(kmttkrp.mttkrp_cuda(buckets, factors, t)[:num_rows])
 
 
 def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
-                       x: torch.Tensor, num_rows: Optional[int] = None
+                       x: torch.Tensor, num_rows: Optional[int] = None,
+                       tile: Optional[ktile.KernelTile] = None
                        ) -> torch.Tensor:
     """Implicit-CG Gram matvec (paper eq. 3) over the Ω buckets (their
     values are the weights ω), routed by rank on both devices:
@@ -148,8 +179,9 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
       kernel on the card);
     - wider R: TTTP over the same bucket view, ``z = ω·⟨KR, x_i⟩``
       (:func:`tttp_bucket_values`), then the bucketed MTTKRP with values z,
-      one launch per column tile on the card. The fused kernel keeps a
-      Khatri-Rao row and x's rows resident, which it cannot at that width."""
+      one launch per column tile on the card, each in its own family's
+      current tile. The fused kernel keeps a Khatri-Rao row and x's rows
+      resident, which it cannot at that width."""
     num_rows = num_rows or buckets.shape[buckets.mode]
     mode = buckets.mode
     if x.shape[1] > kmttkrp.MAX_RANK:
@@ -159,13 +191,18 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
         fs[mode] = None
         return mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
                                num_rows)
-    if not _on_card(buckets.values):
-        out = kref.cg_matvec_bucketed_ref(buckets.values, buckets.indices,
-                                          buckets.local_row, factors, x,
-                                          mode, buckets.block_rows)
-        return out[:num_rows]
-    _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
-    return kcg.cg_matvec_cuda(buckets, factors, x)[:num_rows]
+    t = _resolve_tile("cg_matvec", tile)
+    with obs.span("kernel/cg_matvec_bucketed", mode=mode, rows=num_rows,
+                  tile=t.short()) as sp:
+        if not _on_card(buckets.values):
+            out = kref.cg_matvec_bucketed_ref(buckets.values,
+                                              buckets.indices,
+                                              buckets.local_row, factors, x,
+                                              mode, buckets.block_rows)
+            return sp.fence(out[:num_rows])
+        _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
+        return sp.fence(kcg.cg_matvec_cuda(buckets, factors, x,
+                                           t)[:num_rows])
 
 
 BUCKET_MATVEC_PATHS = ("fused", "tttp_mttkrp", "sliced")

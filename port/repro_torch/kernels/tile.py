@@ -1,19 +1,115 @@
-"""The in-bucket scatter primitive.
+"""Launch shapes of the CUDA kernels, the per-family tile table, and the
+in-bucket scatter primitive's plain form.
 
-:func:`scatter_rows` is the plain PyTorch form of the in-bucket scatter-add
-with both of the reference's schedules (one-hot product and segmented
-cumulative sum). The plain versions in ``kernels.ref`` accumulate through
-it; the CUDA kernels share their own form of it, ``csrc/scatter_rows.cuh``.
+A :class:`KernelTile` carries what the CUDA kernels really take at launch:
 
-The reference's ``KernelTile`` and per-family tile table are not carried
-over: the CUDA kernels take one launch shape (``kernels._build.THREADS``)
-until a tuner is ported to choose among others.
+``block_rows``  — the CCSR bucket granularity the tuner evaluates (recorded,
+                  as in the reference; the kernels honour the
+                  ``block_rows`` of whatever bucket view they are given);
+``threads``     — threads per CTA (a multiple of 32, at most
+                  ``MAX_THREADS``, which the kernels are compiled for);
+``per_thread``  — slots a thread takes per step: the bucketed body's
+                  ``SLOTS`` (``csrc/bucket_rows.cuh``) and TTTP's ``NZ``
+                  (``csrc/tttp.cu``), template depths compiled for
+                  ``PER_THREAD_DEPTHS``;
+``accum_dtype`` — the accumulator, float32 only (bf16 inputs are
+                  ``ROADMAP.md`` Queue B item 1).
+
+Tiles are frozen, hashable and round-trip through JSON (the on-disk plan
+cache, ``planner.tuner``). The process-wide table below is what
+``kernels.ops`` resolves when a caller passes no tile; the tuner installs
+measured winners into it. ``DEFAULT_TILE`` is the launch every kernel made
+before tiles were tuned: 256 threads, 2 slots per thread.
+
+The reference's one-hot and segmented scatter schedules (and its
+``onehot_break_even``) are not tile fields here: the CUDA kernels scatter
+with running sums flushed at row changes (``csrc/scatter_rows.cuh``).
+:func:`scatter_rows` is the plain PyTorch form of the reference's in-bucket
+scatter-add with both of its schedules; the plain versions in
+``kernels.ref`` accumulate through it.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Dict
+
 import torch
 
+FAMILIES = ("tttp", "mttkrp", "cg_matvec")
+
+# threads per CTA the kernels are compiled for (MAX_THREADS in
+# csrc/common.cuh, their __launch_bounds__)
+MAX_THREADS = 256
+# the per-thread depths the kernels are instantiated for (valid_depth in
+# csrc/common.cuh)
+PER_THREAD_DEPTHS = (1, 2, 4)
+
 _SCHEDULES = ("onehot", "segmented")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelTile:
+    """One launch shape of a kernel family (see the module docstring)."""
+    block_rows: int = 8
+    threads: int = 256
+    per_thread: int = 2
+    accum_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.accum_dtype != "float32":
+            raise ValueError(
+                f"accum_dtype {self.accum_dtype!r}: the CUDA kernels "
+                f"accumulate in float32 only; other accumulators come with "
+                f"bf16 inputs, ROADMAP.md Queue B item 1")
+        if self.block_rows < 1:
+            raise ValueError("block_rows must be positive")
+        if self.threads < 32 or self.threads % 32 or \
+                self.threads > MAX_THREADS:
+            raise ValueError(f"threads {self.threads}: a multiple of 32 "
+                             f"from 32 to {MAX_THREADS}")
+        if self.per_thread not in PER_THREAD_DEPTHS:
+            raise ValueError(f"per_thread {self.per_thread} not in "
+                             f"{PER_THREAD_DEPTHS}")
+
+    def short(self) -> str:
+        """Compact label for spans and plan records: br8.t256.p2.f32"""
+        return f"br{self.block_rows}.t{self.threads}.p{self.per_thread}.f32"
+
+    def to_json(self) -> Dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_json(cls, d: Dict) -> "KernelTile":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
+
+
+# ---------------------------------------------------------------------------
+# process-wide per-family tile table (the tuner's output seam)
+# ---------------------------------------------------------------------------
+
+DEFAULT_TILE = KernelTile()
+
+_TILE_TABLE: Dict[str, KernelTile] = {f: DEFAULT_TILE for f in FAMILIES}
+
+
+def current_tile(family: str) -> KernelTile:
+    """The tile ``kernels.ops`` resolves for ``family`` when the caller
+    passes none: the default until ``planner.tuner`` installs a measured
+    winner."""
+    return _TILE_TABLE[family]
+
+
+def set_tile(family: str, tile: KernelTile) -> None:
+    if family not in _TILE_TABLE:
+        raise KeyError(f"unknown kernel family {family!r}; "
+                       f"families: {FAMILIES}")
+    _TILE_TABLE[family] = tile
+
+
+def reset_tiles() -> None:
+    for f in FAMILIES:
+        _TILE_TABLE[f] = DEFAULT_TILE
 
 
 def scatter_rows(prod: torch.Tensor, key: torch.Tensor, block_rows: int,

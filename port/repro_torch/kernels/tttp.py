@@ -5,8 +5,10 @@ reference's ``kernels/tttp.py:tttp_pallas``.
 : 0``, no scatter. The kernel reads the valid mask itself and gathers factor
 rows as 16-byte loads, so the wrapper hands it zero-padded copies of the
 factors with a row stride of a multiple of 4 floats
-(``kernels.mttkrp.pad_rows``). It takes any R. ``launches`` counts the
-kernel's launches.
+(``kernels.mttkrp.pad_rows``). It takes any R. The launch shape (threads
+per CTA, nonzeros per thread) is a ``kernels.tile.KernelTile``.
+``launches`` counts the kernel's launches and ``last_launch`` holds the
+(threads, per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -17,17 +19,20 @@ import torch
 from repro_torch.core.utils import round_up
 from repro_torch.kernels import _build
 from repro_torch.kernels.mttkrp import ROW_ALIGN, pad_rows
+from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 
 launches = 0
+last_launch = None
 
 
 def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
               valid: torch.Tensor,
-              factors: Sequence[Optional[torch.Tensor]]) -> torch.Tensor:
+              factors: Sequence[Optional[torch.Tensor]],
+              tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """``values (m,)`` float32, ``indices (m, nd)`` int32, ``valid (m,)``
     bool, ``factors[d]`` ``(shape[d], R)`` float32 or None, all contiguous
     on one CUDA device. Returns (m,) float32, 0 where ``valid`` is false."""
-    global launches
+    global launches, last_launch
     dev = values.device
     m, nd = indices.shape
     if len(factors) != nd:
@@ -50,7 +55,9 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
     with torch.cuda.device(dev):
         _build.launch("repro_tttp_f32", values.data_ptr(), indices.data_ptr(),
                       valid.data_ptr(), m, nd, table, r,
-                      round_up(r, ROW_ALIGN), out.data_ptr(), _build.THREADS,
+                      round_up(r, ROW_ALIGN), out.data_ptr(), tile.threads,
+                      tile.per_thread,
                       torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    last_launch = (tile.threads, tile.per_thread)
     return out

@@ -3,7 +3,8 @@
     python -m repro_torch.launch.complete --algorithm als --dataset function \\
         --dims 200,180,160 --nnz 200000 --rank 10 --sweeps 10 \\
         [--loss quadratic] [--matvec-path fused|tttp_mttkrp|auto|sliced|dense] \\
-        [--ckpt-dir DIR] [--dump-factors DIR|PATH.npz] [--device cuda|cpu]
+        [--ckpt-dir DIR] [--dump-factors DIR|PATH.npz] [--device cuda|cpu] \\
+        [--plan-cache PATH]
 
 Algorithms, as in the reference: ``als`` (implicit-CG ALS, quadratic
 loss), ``ccd``/``ccd_tttp`` (CCD++, gather/segment-sum or TTTP-routed),
@@ -38,13 +39,18 @@ written as the reference writes it (step = ``--sweeps``, leaves
 ``factor_<d>``, metadata ``kind``, ``rank``, ``shape``, ``algorithm``,
 ``loss``, ``link``, ``dataset``, ``nnz``, ``sweeps``).
 
-``--mesh`` (distribution, ``ROADMAP.md`` Queue A item 4) and
-``--plan-cache`` (the kernel-tile tuner, item 2) are refused with a message.
+``--plan-cache PATH`` (or ``REPRO_PLAN_CACHE``) tunes the kernels' launch
+shapes on the run's tensor before the first sweep (``planner.tuner``) and
+keeps the winners in PATH, so a second run of the same workload restores
+them without timing anything; it prints ``plan-cache: hits= measured=
+footprint_pruned= winners=``. ``--mesh`` (distribution, ``ROADMAP.md``
+Queue A item 4) is refused with a message.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -62,7 +68,8 @@ from repro_torch.core.tttp import multilinear_values
 from repro_torch.data import synthetic
 from repro_torch.data.pipeline import CompletionDataset
 from repro_torch.kernels import ops as kops
-from repro_torch.planner import PlannerConfig, set_default_config
+from repro_torch.planner import (PlannerConfig, ensure_tuned,
+                                 set_default_config)
 from repro_torch.runtime import RestartableLoop
 
 ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
@@ -112,8 +119,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "nothing is checkpointed)")
     ap.add_argument("--mesh", default=None,
                     help="refused: distribution is not ported yet")
-    ap.add_argument("--plan-cache", default=None,
-                    help="refused: the kernel-tile tuner is not ported yet")
+    ap.add_argument("--plan-cache", default=None, metavar="PATH",
+                    help="tune the kernels' launch shapes before the first "
+                         "sweep and keep the winners in PATH (default: "
+                         "REPRO_PLAN_CACHE; neither: no tuning)")
     return ap
 
 
@@ -129,9 +138,6 @@ def check_supported(args) -> None:
     if args.mesh is not None:
         raise SystemExit("--mesh: the port runs on one device so far "
                          "(distribution, ROADMAP.md Queue A item 4)")
-    if args.plan_cache is not None:
-        raise SystemExit("--plan-cache: the kernel-tile tuner is not ported "
-                         "yet (ROADMAP.md Queue A item 2)")
 
 
 @dataclasses.dataclass
@@ -289,6 +295,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Run:
           f"loss={args.loss} matvec_path={args.matvec_path} "
           f"block_rows={ds.block_rows} "
           f"device={st.device} ingest={time.perf_counter() - t0:.2f} s")
+    # the tiles are installed before the first sweep launches anything
+    plan_cache = args.plan_cache or os.environ.get("REPRO_PLAN_CACHE")
+    if plan_cache:
+        summary = ensure_tuned(st, factors, omega=ds.omega,
+                               cache_path=plan_cache)
+        print(f"plan-cache: hits={summary['hits']} "
+              f"measured={summary['measured']} "
+              f"footprint_pruned={summary['footprint_pruned']} "
+              f"winners={summary['winners']}")
     run = run_solver(args, ds, factors)
     if args.dump_factors:
         dump_factors(args, run)

@@ -24,8 +24,12 @@ JSON records ``loss`` (evaluated), ``update_loss`` (optimized) and ``link``
 metrics evaluate exp(model) in rate space).
 
 Everything runs on ``--device`` (``cuda`` unless the caller asks for the
-CPU). The kernel-tile plan cache (``--plan-cache``, ``REPRO_PLAN_CACHE``) is
-refused: the kernel-tile tuner is ``ROADMAP.md`` Queue A item 2.
+CPU). With a plan cache (``--plan-cache``, ``REPRO_PLAN_CACHE``) the
+kernels' launch shapes are tuned on the ingested tensor before the first
+run (``planner.tuner.ensure_tuned``, with factors from the port's own
+generator, seeded by the spec's seed folded with 97 as the reference folds
+its key), the ``plan-cache:`` line is printed and the report gains
+``plan_cache``.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from repro_torch.core.completion.gcp import gcp_loss
 from repro_torch.data import streaming
 from repro_torch.data.pipeline import CompletionDataset
 from repro_torch.kernels import ops as kops
+from repro_torch.planner import ensure_tuned
 from repro_torch.runtime import RestartableLoop
 
 ALGORITHMS = ("als", "ccd", "sgd", "ggn", "gcp")
@@ -202,16 +207,32 @@ def run_experiment(spec: ExperimentSpec, out_dir: str = "experiments",
     ``<out_dir>/experiment_<name>.json``; returns the report dict.
     ``trace=True`` enables obs tracing with a JSONL event stream at
     ``<out_dir>/trace_<name>.jsonl`` (per-sweep span trees also ride the
-    metric history in the checkpoint manifest)."""
-    if plan_cache or os.environ.get("REPRO_PLAN_CACHE"):
-        raise ValueError("plan cache (--plan-cache / REPRO_PLAN_CACHE): the "
-                         "kernel-tile tuner is not ported yet")
+    metric history in the checkpoint manifest). ``plan_cache`` (default
+    ``REPRO_PLAN_CACHE``) tunes the kernel tiles before the first run."""
     algorithms, losses = _checked(spec, algorithms, losses)
     if trace:
         _start_trace(out_dir, spec)
     ds, seconds = ingest_spec(spec, spool_dir, device)
     return run_on_dataset(spec, ds, seconds, out_dir, ckpt_root, algorithms,
-                          losses, trace)
+                          losses, trace, plan_cache)
+
+
+def tune_tiles(spec: ExperimentSpec, ds: CompletionDataset,
+               plan_cache: str) -> dict:
+    """``ensure_tuned`` on the dataset's tensor with N(0, 1/R) factors drawn
+    from a generator seeded by the spec's seed folded with 97; prints the
+    ``plan-cache:`` line and returns the summary."""
+    st = ds.tensor
+    gen = torch.Generator(device=st.device).manual_seed(
+        fold_seed(spec.seed, 97))
+    factors = [torch.randn(d, spec.rank, generator=gen, device=st.device)
+               / spec.rank ** 0.5 for d in spec.shape]
+    summary = ensure_tuned(st, factors, omega=ds.omega, cache_path=plan_cache)
+    print(f"plan-cache: hits={summary['hits']} "
+          f"measured={summary['measured']} "
+          f"footprint_pruned={summary['footprint_pruned']} "
+          f"winners={summary['winners']}")
+    return summary
 
 
 def run_on_dataset(spec: ExperimentSpec, ds: CompletionDataset,
@@ -219,10 +240,12 @@ def run_on_dataset(spec: ExperimentSpec, ds: CompletionDataset,
                    ckpt_root: Optional[str] = None,
                    algorithms: Optional[Tuple[str, ...]] = None,
                    losses: Optional[Tuple[str, ...]] = None,
-                   trace: bool = False) -> dict:
+                   trace: bool = False,
+                   plan_cache: Optional[str] = None) -> dict:
     """:func:`run_experiment` on a dataset the caller ingested from ``spec``
     (``ingest_spec``), on the dataset's device."""
     algorithms, losses = _checked(spec, algorithms, losses)
+    plan_cache = plan_cache or os.environ.get("REPRO_PLAN_CACHE")
     if trace and not obs.enabled():
         _start_trace(out_dir, spec)
     st, omega, test_st, stats = ds.tensor, ds.omega, ds.test, ds.stats
@@ -248,6 +271,14 @@ def run_on_dataset(spec: ExperimentSpec, ds: CompletionDataset,
         },
         "runs": [],
     }
+    if plan_cache:
+        # before the first sweep: every run launches in the tuned tiles
+        tuned = tune_tiles(spec, ds, plan_cache)
+        report["plan_cache"] = {
+            "path": plan_cache, "hits": tuned["hits"],
+            "measured": tuned["measured"],
+            "footprint_pruned": tuned["footprint_pruned"],
+            "winners": tuned["winners"]}
 
     for loss_name in losses:
         for algorithm in algorithms:
@@ -357,7 +388,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="enable obs tracing; writes trace_<spec>.jsonl "
                          "next to the experiment JSON")
     ap.add_argument("--plan-cache", default=None, metavar="PATH",
-                    help="not ported yet (the kernel-tile tuner)")
+                    help="tune the kernels' launch shapes before the first "
+                         "run and keep the winners in PATH (default: "
+                         "REPRO_PLAN_CACHE)")
     ap.add_argument("--device", default="cuda")
     return ap
 

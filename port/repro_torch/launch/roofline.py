@@ -1,0 +1,149 @@
+"""Roofline terms of the port's work: the flops and bytes a call needs,
+against which ``obs.profile_fn`` reads a measured time.
+
+The reference derives its terms from compiled XLA HLO; the port has no HLO,
+so the terms come from two places:
+
+* :func:`kernel_terms`, for the three CUDA kernel families, from shapes
+  alone (no tensors): each input read once, each output written once, and
+  for skewed or serving layouts only the valid entries and the distinct
+  factor rows they gather. This is the count behind ``PERF.md``'s bound
+  column; ``chip_smoke.py`` phase 4 and ``launch.report`` read it.
+* :func:`profiler_terms`, for any PyTorch callable: matrix-product flops
+  from ``torch.profiler`` (``record_shapes=True, with_flops=True``), and
+  the operand plus output bytes of each aten operation the call
+  dispatches (views move nothing), the counterpart of the reference's
+  ``HloModule.totals()``.
+
+:func:`bound` turns bytes and operations into the least time (ms) the card
+could take, and what sets it. The machine constants are the NVIDIA H100
+SXM data sheet's (``obs.profile.Machine`` reads them, overridable by
+``REPRO_PEAK_FLOPS``, ``REPRO_HBM_BW`` and ``REPRO_LINK_BW``). The
+reference's ``model_flops`` and ``active_params`` (its LM cells) wait with
+``ROADMAP.md`` Queue A item 6.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Sequence
+
+import torch
+
+from repro_torch.obs.profile import Machine
+
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3, NVLink
+# per direction
+PEAK_FLOPS = 67e12
+HBM_BW = 3.35e12
+LINK_BW = 450e9
+
+# what one slot of each layout reads: value (4), valid (1), nd int32
+# indices, and for the bucketed layouts local_row (4)
+_VALUE, _VALID, _INDEX, _LOCAL_ROW = 4, 1, 4, 4
+_FAMILIES = ("tttp", "mttkrp", "cg_matvec")
+# the aten products whose profiler flops count as matrix-product flops
+MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(n_bytes: float, n_ops: float, machine: Machine = None):
+    """Least time (ms) for the work and what sets it: bytes over the memory
+    rate or operations over the peak rate, the larger."""
+    machine = machine or Machine.from_env()
+    t_bytes = n_bytes / machine.hbm_bw * 1e3
+    t_ops = n_ops / machine.peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gather_sector_bytes(n_rows: int, r: int) -> float:
+    """L2 sector bytes that gathering ``n_rows`` factor rows takes when each
+    row is read whole at the kernels' padded stride (R rounded up to 4
+    floats): the 32-byte sectors a row spans, averaged over the row
+    offsets, which repeat every 8 rows."""
+    stride = 4 * (-(-r // 4) * 4)
+    spans = [(i * stride + stride - 1) // 32 - i * stride // 32 + 1
+             for i in range(8)]
+    return n_rows * 32 * sum(spans) / len(spans)
+
+
+def kernel_terms(family: str, *, slots: int, nd: int, rank: int,
+                 valid: int, factor_rows: Sequence[int], out_rows: int = 0,
+                 x_rows: int = 0, valid_only: bool = False
+                 ) -> Dict[str, float]:
+    """Flops and bytes one call of a kernel family needs, from shapes.
+
+    ``slots`` are the entries the kernel walks (the COO's m, or a bucket
+    view's nb·C), ``valid`` those that hold a nonzero; ``factor_rows`` the
+    rows of each factor it gathers (the present factors for TTTP, the
+    non-target ones for the bucketed kernels; distinct rows where only
+    those are read); ``out_rows`` the bucketed kernels' output rows
+    (nb·block_rows) and ``x_rows`` the fused matvec's rows of x. TTTP reads
+    value, valid and indices per slot (a bucket view as flat slots) and
+    writes one float per slot; the bucketed kernels also read local_row and
+    write (out_rows, R).
+    ``valid_only`` counts the valid entries' bytes alone (the function
+    needs no more; skewed and serving layouts pad heavily). Operations
+    count, per valid entry, R multiplies per factor (TTTP), plus R
+    accumulations (the MTTKRP), plus the dot product with x (the fused
+    matvec)."""
+    if family not in _FAMILIES:
+        raise KeyError(f"unknown kernel family {family!r}")
+    n = valid if valid_only else slots
+    per_slot = _VALUE + _VALID + _INDEX * nd
+    factor_bytes = 4 * rank * sum(factor_rows)
+    if family == "tttp":
+        moved = n * (per_slot + 4) + factor_bytes
+        ops = valid * rank * len(factor_rows)
+    else:
+        moved = (n * (per_slot + _LOCAL_ROW) + factor_bytes
+                 + 4 * rank * out_rows)
+        ops = valid * rank * (len(factor_rows) + 1)
+        if family == "cg_matvec":
+            moved += 4 * rank * x_rows
+            ops = valid * rank * (len(factor_rows) + 3)
+    return {"flops": float(ops), "bytes": float(moved),
+            "collective_bytes": 0.0}
+
+
+def profiler_terms(fn: Callable, *args) -> Dict[str, float]:
+    """Roofline terms of ``fn(*args)``: ``flops`` (matrix products, from
+    ``torch.profiler``), ``profiler_flops`` (every flop the profiler
+    counts, elementwise ones too: the cross-check the reference gets from
+    XLA's cost analysis), ``bytes`` (operand plus output bytes of each aten
+    operation the call dispatches; views move nothing) and
+    ``collective_bytes`` (0: one device). ``fn`` runs twice, once under the
+    profiler and once under a dispatch mode that counts the bytes: under
+    the mode the profiler would see each operation twice."""
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils import _pytree as pytree
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Traffic(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                seen = [t for t in pytree.tree_leaves((args, kwargs, out))
+                        if isinstance(t, torch.Tensor)]
+                self.bytes += nbytes(*seen)
+            return out
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, record_shapes=True,
+                 with_flops=True) as prof:
+        fn(*args)
+    traffic = _Traffic()
+    with traffic:
+        fn(*args)
+    events = [e for e in prof.events() if e.flops]
+    return {"flops": float(sum(e.flops for e in events
+                               if e.name in MATMUL_OPS)),
+            "profiler_flops": float(sum(e.flops for e in events)),
+            "bytes": float(traffic.bytes), "collective_bytes": 0.0}

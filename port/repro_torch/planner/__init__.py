@@ -8,6 +8,7 @@ Layering::
     plan.py      ranking, plan cache, one-shot autotuning
     dispatch.py  lowering onto the CUDA kernels and the plain contractions
     config.py    bucket granularity and H-slicing knobs of dispatch
+    tuner.py     kernel-tile tuning (launch shapes) and the on-disk plan cache
 
 ``repro_torch.core.api.einsum`` and ``api.TTTP`` are thin shims over
 :func:`planned_einsum`; the completion solvers' contraction shims
@@ -33,6 +34,7 @@ from repro_torch.planner.dispatch import bucketed_mttkrp, execute
 from repro_torch.planner.ir import ContractionIR, DistInfo, build_ir
 from repro_torch.planner.plan import (Plan, clear_plan_cache,
                                       plan_cache_size, plan_contraction)
+from repro_torch.planner.tuner import ensure_tuned
 
 __all__ = [
     "ContractionIR", "DistInfo", "PathCost", "Plan", "PlannerConfig",
@@ -41,7 +43,7 @@ __all__ = [
     "plan_contraction", "clear_plan_cache", "plan_cache_size",
     "execute", "planned_einsum", "planned_mttkrp",
     "planned_tttp", "planned_cg_matvec", "planned_reduce",
-    "mttkrp_fn", "tttp_fn",
+    "mttkrp_fn", "tttp_fn", "ensure_tuned",
 ]
 
 # mode letters for synthesized expressions; 'z' is reserved for the kept

@@ -18,14 +18,13 @@ must find its plan in the cache, built by the same call run eagerly first,
 as the serving engine's first call of a key does.
 
 ``autotune=True`` upgrades a plan by timing every candidate within
-:data:`AUTOTUNE_MEM_BUDGET_WORDS` on the given operands (:func:`fenced_time`,
-best of 3 after a warm-up) and pinning the measured winner; the timings are
-kept on the plan.
+:data:`AUTOTUNE_MEM_BUDGET_WORDS` on the given operands
+(``tuner.fenced_time``, best of 3 after a warm-up) and pinning the measured
+winner; the timings are kept on the plan.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch import obs
@@ -36,6 +35,7 @@ from repro_torch.planner import dispatch as pdispatch
 from repro_torch.planner import ir as pir
 from repro_torch.planner.config import (DEFAULT_CONFIG, PlannerConfig,
                                         default_config)
+from repro_torch.planner.tuner import fenced_time
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,27 +92,6 @@ def clear_plan_cache() -> None:
 
 def plan_cache_size() -> int:
     return len(_CACHE)
-
-
-def _sync(out) -> None:
-    obs.synchronize(out.values if isinstance(out, SparseTensor) else out)
-
-
-def fenced_time(fn, iters: int = 3, span_name: str = "tuner/measure",
-                **attrs) -> float:
-    """Best-of-``iters`` wall time of ``fn()`` after one warm-up call, each
-    run fenced by a synchronisation of the devices its output lies on
-    (``torch.cuda.synchronize``; nothing to wait for on the CPU). Every
-    timed run sits in an ``obs.span``, so with tracing on the timings land
-    in the registry beside the planner's spans."""
-    _sync(fn())
-    best = float("inf")
-    for _ in range(iters):
-        with obs.span(span_name, **attrs):
-            t0 = time.perf_counter()
-            _sync(fn())
-            best = min(best, time.perf_counter() - t0)
-    return best
 
 
 def _time_path(ir: pir.ContractionIR, path: str, operands: Sequence,

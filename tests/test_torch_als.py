@@ -242,11 +242,13 @@ def test_cli_from_npz_matches_reference_sweep(tmp_path, capsys, path):
 
 @pytest.mark.parametrize("argv", [["--mesh", "2,1"],
                                   ["--mesh", "4,2", "--ckpt-dir", "ck"],
-                                  ["--plan-cache", "plans.json"]])
+                                  ["--mesh", "2,1", "--plan-cache",
+                                   "plans.json"]])
 def test_cli_refuses_unported(argv):
-    """--mesh (distribution) and --plan-cache (the kernel-tile tuner) are
-    refused, naming their ROADMAP.md item (checkpoints, --dataset netflix
-    and --dump-factors DIR run: tests/test_torch_{experiment,checkpoint}.py)."""
+    """--mesh (distribution) is refused, naming its ROADMAP.md item, with
+    or without flags that run (checkpoints, --dataset netflix and
+    --dump-factors DIR: tests/test_torch_{experiment,checkpoint}.py;
+    --plan-cache, the kernel-tile tuner: tests/test_torch_tuner.py)."""
     with pytest.raises(SystemExit, match="port.*Queue A item"):
         complete.main(["--device", "cpu"] + argv)
 

@@ -30,7 +30,9 @@ from repro_torch.kernels import cg_matvec as kcg
 from repro_torch.kernels import mttkrp as kmttkrp
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels import tile as ktile
 from repro_torch.kernels import tttp as ktttp
+from repro_torch.planner import tuner
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -106,7 +108,7 @@ EDGE_CASES = [((40, 24, 12), 3000, 3, None), ((400, 30, 20), 600, 10, None),
 @pytest.mark.parametrize("block_rows", [8, 16])
 def test_bucketed_kernels_on_layout_edge_cases(dev, shape, nnz, r, sort_mode,
                                                block_rows):
-    from repro_torch.kernels import _build
+    threads = ktile.DEFAULT_TILE.threads
     st, fs = _problem(dev, 3, shape, nnz, r, sort_mode)
     for mode in (0, len(shape) - 1):
         bk = st.row_buckets(mode, block_rows)
@@ -125,11 +127,11 @@ def test_bucketed_kernels_on_layout_edge_cases(dev, shape, nnz, r, sort_mode,
         torch.testing.assert_close(got, want, **TOL)
     bk = st.row_buckets(0, block_rows)
     assert bool((bk.valid.sum(1) == 0).any())        # an empty bucket
-    assert bk.capacity % _build.THREADS != 0         # a ragged last step
-    if bk.capacity >= 2 * _build.THREADS:
-        # some thread's slots (c ≡ t mod THREADS) span more than one row
-        lr = bk.local_row[:, :bk.capacity // _build.THREADS * _build.THREADS]
-        runs = lr.reshape(bk.num_blocks, -1, _build.THREADS)
+    assert bk.capacity % threads != 0                # a ragged last step
+    if bk.capacity >= 2 * threads:
+        # some thread's slots (c ≡ t mod threads) span more than one row
+        lr = bk.local_row[:, :bk.capacity // threads * threads]
+        runs = lr.reshape(bk.num_blocks, -1, threads)
         assert bool((runs.amax(1) != runs.amin(1)).any())
 
 
@@ -142,14 +144,13 @@ def test_tttp_kernel_matches_plain_version(dev, r, missing):
     whose values are not zero (the kernel reads the valid mask and writes
     exact zeros there), over a ragged tail (m is not a multiple of the
     nonzeros a CTA takes per step), and over a bucket view."""
-    from repro_torch.kernels import _build
     st, fs = _problem(dev, 4, (40, 24, 12), 3000, r)
     if missing is not None:
         fs[missing] = None
     vals = st.values.clone()
     vals[~st.valid] = 5.0
     raw = dataclasses.replace(st, values=vals)
-    assert st.cap % (2 * _build.THREADS) != 0
+    assert st.cap % (2 * ktile.DEFAULT_TILE.threads) != 0
     got = kops.tttp_values(raw, fs)
     torch.testing.assert_close(
         got, kref.tttp_ref(vals, st.indices, st.valid, fs), **TOL)
@@ -617,3 +618,65 @@ def test_engine_planner_paths_capture_and_replay(dev):
         np.testing.assert_allclose(card.fold_in(hists, 0),
                                    cpu.fold_in(hists, 0), **TOL)
     assert card.graph_stats()["replays"] == 2
+
+
+# every tile the tuner's lattices hold, at two ranks (RMAX 16 and 32 of the
+# bucketed body, TTTP's one 16-column pass and two)
+LATTICE_TILES = sorted({t for lat in tuner.LATTICES.values() for t in lat},
+                       key=lambda t: t.short())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [10, 32])
+@pytest.mark.parametrize("tile", LATTICE_TILES, ids=lambda t: t.short())
+def test_lattice_tiles_match_plain_versions(dev, tile, r):
+    """Each lattice candidate of the three kernels against its plain
+    version, launched in its own shape (``last_launch``)."""
+    st, fs = _problem(dev, 9, (60, 30, 20), 6000, r)
+    got = kops.tttp_values(st, fs, tile=tile)
+    torch.testing.assert_close(
+        got, kref.tttp_ref(st.values, st.indices, st.valid, fs), **TOL)
+    assert ktttp.last_launch == (tile.threads, tile.per_thread)
+    bk = st.row_buckets(0, 8)
+    others = [None] + fs[1:]
+    torch.testing.assert_close(
+        kops.mttkrp_bucketed(bk, others, tile=tile),
+        kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                 others, 0, 8)[:60], **TOL)
+    assert kmttkrp.last_launch == (tile.threads, tile.per_thread)
+    x = 0.5 * torch.randn(60, r, device=dev)
+    torch.testing.assert_close(
+        kops.cg_matvec_bucketed(bk, fs, x, tile=tile),
+        kref.cg_matvec_bucketed_ref(bk.values, bk.indices, bk.local_row, fs,
+                                    x, 0, 8)[:60], **TOL)
+    assert kcg.last_launch == (tile.threads, tile.per_thread)
+
+
+@pytest.mark.cuda
+def test_kernel_attributes_match_footprint_model(dev):
+    """The attribute entry point answers for every instantiation of the
+    lattices' depths, its registers and static shared memory are the
+    build log's (what the footprint model reads), and a made-up
+    instantiation raises."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import footprint
+    _build.lib()
+    usage = _build.resource_usage()
+    assert usage, "no build log beside the library"
+    for depth in ktile.PER_THREAD_DEPTHS:
+        for family, variants, key in (
+                ("tttp", range(1, 9), lambda v: ("tttp_kernel", (v, depth))),
+                ("mttkrp", footprint.RMAX_VARIANTS,
+                 lambda v: ("bucket_rows_kernel", (v, 0, depth))),
+                ("cg_matvec", footprint.RMAX_VARIANTS,
+                 lambda v: ("bucket_rows_kernel", (v, 1, depth)))):
+            for v in variants:
+                a = _build.kernel_attributes(family, v, depth, 256, 768)
+                log = usage[key(v)]
+                assert a["registers"] == log["registers"], (family, v, depth)
+                assert a["static_smem"] == log["smem"], (family, v, depth)
+                assert a["max_threads"] >= 256 and a["blocks_per_sm"] >= 1
+    with pytest.raises(RuntimeError, match="kernel attributes"):
+        _build.kernel_attributes("tttp", 9, 2, 256, 0)
+    with pytest.raises(RuntimeError, match="kernel attributes"):
+        _build.kernel_attributes("mttkrp", 16, 3, 256, 0)

@@ -166,13 +166,30 @@ def test_run_experiment_netflix_ci_every_pair(tmp_path):
     assert ing["nnz"] + ing["duplicates_dropped"] == ing["entries_read"]
 
 
-def test_run_experiment_refuses_plan_cache(tmp_path, monkeypatch):
-    with pytest.raises(ValueError, match="tuner is not ported"):
-        experiment.run_experiment(TINY, out_dir=str(tmp_path),
-                                  plan_cache="x.json", device="cpu")
-    monkeypatch.setenv("REPRO_PLAN_CACHE", "x.json")
-    with pytest.raises(ValueError, match="tuner is not ported"):
-        experiment.run_experiment(TINY, out_dir=str(tmp_path), device="cpu")
+def test_run_experiment_refuses_plan_cache(tmp_path, monkeypatch, capsys):
+    """Named for the refusal the kernel-tile tuner replaced: a plan cache,
+    given as ``plan_cache=`` or by ``REPRO_PLAN_CACHE``, now tunes the
+    tiles before the first run, and the second experiment on the same
+    spec restores every family from the file."""
+    from repro_torch.kernels import tile as ktile
+    from repro_torch.planner import cost as pcost
+    spec = dataclasses.replace(TINY, sweeps=1)
+    cache = str(tmp_path / "plans.json")
+    kw = dict(algorithms=("als",), losses=("quadratic",), device="cpu")
+    try:
+        first = experiment.run_experiment(spec, out_dir=str(tmp_path / "a"),
+                                          plan_cache=cache, **kw)
+        monkeypatch.setenv("REPRO_PLAN_CACHE", cache)
+        second = experiment.run_experiment(spec,
+                                           out_dir=str(tmp_path / "b"), **kw)
+    finally:
+        ktile.reset_tiles()
+        pcost.reset_rates()
+    assert first["plan_cache"]["hits"] == 0
+    assert first["plan_cache"]["measured"] > 0
+    assert second["plan_cache"] == {**first["plan_cache"], "hits": 3,
+                                    "measured": 0}
+    assert capsys.readouterr().out.count("plan-cache: hits=") == 2
 
 
 def test_experiment_resumes_metrics_from_manifest(tmp_path, monkeypatch):

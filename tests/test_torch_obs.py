@@ -162,12 +162,28 @@ def test_experiment_trace_rides_the_report(tmp_path):
     kinds = [e["kind"] for e in lines]
     assert kinds[0] == "ingest" and kinds[-1] == "experiment_summary"
     # loop/step and sweep per sweep; inside each sweep, the planner's span
-    # of each of ALS's three right-hand-side MTTKRPs
-    spans = [e["path"] for e in lines if e["kind"] == "span"]
+    # of each of ALS's three right-hand-side MTTKRPs; and each kernel
+    # wrapper's span, carrying the tile its launch resolved
+    spans = [e for e in lines if e["kind"] == "span"]
+    kernel = [e["path"] for e in spans if e["name"].startswith("kernel/")]
+    assert {e["attrs"]["tile"] for e in spans
+            if e["name"].startswith("kernel/")} == {"br8.t256.p2.f32"}
+    spans = [e["path"] for e in spans if not e["name"].startswith("kernel/")]
     assert len(spans) == 10
     assert spans.count("loop/step/sweep/planner/mttkrp/all_at_once") == 6
     assert [p for p in spans if "planner" not in p] == \
         ["loop/step/sweep", "loop/step"] * 2
+    # per sweep: the MTTKRP under each planner span, 1 + cg_iters fused
+    # matvecs per mode, and three TTTPs after the sweep (the objective and
+    # the train and held-out metrics)
+    assert sorted(set(kernel)) == [
+        "loop/step/kernel/tttp", "loop/step/sweep/kernel/cg_matvec_bucketed",
+        "loop/step/sweep/planner/mttkrp/all_at_once/kernel/mttkrp_bucketed"]
+    assert kernel.count("loop/step/sweep/planner/mttkrp/all_at_once/kernel/"
+                        "mttkrp_bucketed") == 6
+    assert kernel.count("loop/step/sweep/kernel/cg_matvec_bucketed") == \
+        2 * 3 * (1 + spec.cg_iters)
+    assert kernel.count("loop/step/kernel/tttp") == 2 * 3
     # one plan per mode's MTTKRP, measured once per sweep
     plans = report["obs"]["plans"].values()
     assert len(plans) == 3
