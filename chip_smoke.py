@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-eleven phases and stops with a non-zero exit at the first failure (9a-9d
+twelve phases and stops with a non-zero exit at the first failure (9a-9d
 and 10 run right after phase 6, on phase 3's tensor before it is freed,
-9e after phase 8, on 7e's factors):
+9e after phase 8, on 7e's factors, 11 after 9e):
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each instantiation's registers and spills (every
@@ -180,11 +180,40 @@ and 10 run right after phase 6, on phase 3's tensor before it is freed,
    e. ``launch.report --spec netflix-ci --out FILE``, its kernel roofline
       rows logged;
    then the default tiles and the data-sheet rates are put back;
-11. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3, 6, 7, 8, 9 and 10
-   under ``path_launches``, and, at the layouts phase 10 timed, every
-   lattice tile's numbers under ``tiles``), the card's name and power
-   limit, and, last, ``{"ok": true, "device": {...}}``.
+11. distribution (``core.distributed``, ``launch.complete --mesh``), in
+   spawned ranks after the earlier phases freed their tensors; ranks
+   beyond the one card share it over gloo (nccl refuses two ranks on one
+   card), each collective copied through host memory and counted:
+   a. phase 3's problem (80 M, R = 10, 20 CG, block_rows 8, two fused
+      sweeps) at ``--mesh 2,1 --dist-backend gloo`` (40 M nonzeros per
+      rank) and ``--mesh 1,1 --dist-backend nccl`` (a real nccl group of
+      one): RMSE per sweep within 1e-4 relative of phase 3's LOCAL run,
+      the factors at rtol 1e-3 (atol 1e-3 of the largest entry); every
+      rank must launch TTTP, the MTTKRP and the fused matvec and
+      all-reduce 3 x (1 + 1 + 20) = 66 times per sweep; bytes,
+      host-staged bytes and sweep ms printed per rank;
+   b. every algorithm at 7e's dims (2000 x 1500 x 1000, 2 M nonzeros, R =
+      10, two sweeps) on a 2 x 2 grid of gloo ranks (sgd on 1 x 4 at R =
+      12: its data axis of size 1 draws the LOCAL sample), against a
+      LOCAL run of the same flags on the card: RMSE and factors at 1e-4
+      relative; GGN's objective per iteration within 1e-3 of the envelope
+      of five LOCAL runs under other summation orders (bucket granularity
+      4, 8, 16, the fused and the TTTP + MTTKRP matvec): float32 GGN is
+      order-sensitive (two LOCAL runs of the same flags differ by 6e-4
+      after two iterations, the atomics' order), and the kernels take
+      float32 only; every rank must launch TTTP, and all but the CCD++
+      pair the MTTKRP;
+   c. at 2 and 4 gloo ranks: the row-sharded TTTP and MTTKRP at 80 M,
+      h_slices 1 and 2, against the LOCAL kernels' output (h launches of
+      each per rank), the butterfly sparse all-reduce against the union
+      of the blocks, ``compressed_psum`` within 0.1 of the exact sum, and
+      ``transpose_distributed`` equal to the local transpose, at 2 M;
+12. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, and in every run of phases 3, 6, 7, 8, 9, 10 and
+   11 under ``path_launches``, a mesh run's summed over its ranks, and,
+   at the layouts phase 10 timed, every lattice tile's numbers under
+   ``tiles``), the card's name and power limit, and, last, ``{"ok":
+   true, "device": {...}}``.
 """
 import dataclasses
 import json
@@ -2376,6 +2405,374 @@ def phase_tiles(torch, run):
     return counts, tables
 
 
+# ---------------------------------------------------------------------------
+# phase 11
+# ---------------------------------------------------------------------------
+
+# an ALS sweep all-reduces over the data axis once per MTTKRP and once per
+# fused matvec: per mode b, CG's first residual and CG_ITERS iterations
+DIST_ALS_ALL_REDUCES = 3 * (1 + 1 + CG_ITERS)
+# 11b: every algorithm at 7e's dims; sgd on the model axis (the data axis
+# of size 1 draws the LOCAL sample) with a rank the axis divides
+DIST_CASES = (("als", "2,2", RANK), ("ccd", "2,2", RANK),
+              ("ccd_tttp", "2,2", RANK), ("gcp", "2,2", RANK),
+              ("ggn", "2,2", RANK), ("sgd", "1,4", 12))
+DIST_SWEEPS = 2
+DIST_TOL = 1e-4
+# float32 GGN is order-sensitive (ROADMAP.md Queue C) and the kernels take
+# float32 only: two LOCAL runs of the same flags differ by 6e-4 after the
+# second iteration here (the atomics' order), and by 2e-3 across bucket
+# granularities and matvec routes (PR 19's chip runs). So the mesh's
+# objective is held, per iteration, within this of the envelope of LOCAL
+# runs under these summation orders
+DIST_GGN_OBJ_TOL = 1e-3
+GGN_ORDERS = ([], ["--matvec-path", "tttp_mttkrp"], ["--block-rows", "4"],
+              ["--block-rows", "16"],
+              ["--matvec-path", "tttp_mttkrp", "--block-rows", "16"])
+
+
+def kernel_sums(runs):
+    """Each kernel's launches over every rank of a ``--mesh`` run."""
+    return {k: sum(r.run_launches[k] for r in runs)
+            for k in ("tttp", "mttkrp", "cg_matvec")}
+
+
+def log_mesh_run(label, mr, wall):
+    head = mr.runs[0]
+    sweeps = [f"{s * 1e3:.1f}" for _, s, _ in head.history]
+    for r, run in enumerate(mr.runs):
+        c = run.run_collectives
+        log(f"  {label} rank {r}: launches {run.run_launches}, collectives "
+            f"all_reduce {c['all_reduce']} all_gather {c['all_gather']} "
+            f"reduce_scatter {c['reduce_scatter']}, {c['bytes']} B, host "
+            f"staged {c['host_staged_bytes']} B; per sweep all_reduce "
+            f"{[x['all_reduce'] for x in run.sweep_collectives]}")
+    log(f"  {label}: wall {wall:.1f} s (spawn, ingest and sweeps), sweep ms "
+        f"{sweeps} (rank 0's clock between barriers), RMSE "
+        f"{errors(head)}")
+
+
+def errors(run):
+    """A run's RMSE before the first sweep and after each."""
+    return [run.rmse0] + [e for _, _, e in run.history]
+
+
+def held_rmse(label, got, want, tol):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not (math.isfinite(a) and abs(a - b) <= tol * abs(b)):
+            raise SystemExit(f"phase 11: {label} RMSE {i} = {a!r}, LOCAL "
+                             f"{b!r} (relative tolerance {tol})")
+
+
+def held_factors(torch, label, got, want, rtol):
+    for d, (a, b) in enumerate(zip(got, want)):
+        b = b.cpu()
+        scale = float(b.abs().max())
+        torch.testing.assert_close(
+            a.cpu(), b, rtol=rtol, atol=rtol * scale,
+            msg=lambda m: f"phase 11: {label} factor {d}: {m}")
+        log(f"  {label} factor {d}: max |mesh - LOCAL| = "
+            f"{float((a.cpu() - b).abs().max()):.3e} (max |LOCAL| "
+            f"{scale:.3e})")
+
+
+def phase_dist_main(torch, ref):
+    """11a: phase 3's problem through ``launch.complete --mesh``, two gloo
+    ranks sharing the card and one nccl rank, against phase 3's LOCAL
+    run."""
+    from repro_torch.launch import complete
+    argv = ["--algorithm", "als"] + main_argv() + ["--matvec-path", "fused"]
+    counts = {}
+    # nccl takes one card per rank: two ranks on the one card are refused
+    # before any starts (nccl itself raises "Duplicate GPU detected")
+    try:
+        complete.main(argv + ["--mesh", "2,1", "--dist-backend", "nccl"])
+    except SystemExit as e:
+        log(f"  --mesh 2,1 --dist-backend nccl on one card: refused ({e})")
+    else:
+        raise SystemExit("phase 11a: --mesh 2,1 over nccl ran on one card")
+    for mesh, backend in (("2,1", "gloo"), ("1,1", "nccl")):
+        label = f"dist als {mesh} {backend}"
+        t0 = time.perf_counter()
+        mr = complete.main(argv + ["--mesh", mesh, "--dist-backend",
+                                   backend])
+        wall = time.perf_counter() - t0
+        log_mesh_run(label, mr, wall)
+        if backend == "gloo" and not all(
+                r.run_collectives["host_staged_bytes"] > 0 for r in mr.runs):
+            raise SystemExit(f"phase 11a: {label} staged nothing through "
+                             f"host memory")
+        for r, run in enumerate(mr.runs):
+            missing = [k for k, n in run.run_launches.items() if n == 0]
+            if missing:
+                raise SystemExit(f"phase 11a: {label} rank {r} did not "
+                                 f"launch {missing}")
+            per = [c["all_reduce"] for c in run.sweep_collectives]
+            if per != [DIST_ALS_ALL_REDUCES] * SWEEPS:
+                raise SystemExit(
+                    f"phase 11a: {label} rank {r} all-reduced {per} times "
+                    f"per sweep, not {DIST_ALS_ALL_REDUCES} (3 x (1 + 1 + "
+                    f"{CG_ITERS}))")
+        held_rmse(label, errors(mr.runs[0]), ref["rmse"], DIST_TOL)
+        held_factors(torch, label, mr.runs[0].factors, ref["factors"], 1e-3)
+        counts[label] = kernel_sums(mr.runs)
+    return counts
+
+
+def dist_argv(algo, rank):
+    return ["--algorithm", algo, "--dims", ",".join(map(str, SMALL_DIMS)),
+            "--nnz", str(SMALL_NNZ), "--rank", str(rank), "--cg-iters",
+            str(CG_ITERS), "--block-rows", str(BLOCK_ROWS), "--sweeps",
+            str(DIST_SWEEPS), "--seed", str(SEED), "--device", "cuda"]
+
+
+def phase_dist_algorithms(torch):
+    """11b: every algorithm on a 2 x 2 grid (sgd 1 x 4) of gloo ranks
+    sharing the card, against a LOCAL run of the same flags on the card
+    (GGN: against the envelope of LOCAL runs under GGN_ORDERS)."""
+    from repro_torch.launch import complete
+    counts = {}
+    for algo, mesh, rank in DIST_CASES:
+        argv = dist_argv(algo, rank)
+        local = [complete.main(argv + o)
+                 for o in (GGN_ORDERS if algo == "ggn" else ([],))]
+        label = f"dist {algo} {mesh} gloo"
+        t0 = time.perf_counter()
+        mr = complete.main(argv + ["--mesh", mesh, "--dist-backend",
+                                   "gloo"])
+        wall = time.perf_counter() - t0
+        log_mesh_run(label, mr, wall)
+        for r, run in enumerate(mr.runs):
+            # CCD++ reduces by index_add_ (its TTTP variant too), the
+            # others run the MTTKRP kernel
+            need = ["tttp"] + ([] if algo.startswith("ccd") else ["mttkrp"])
+            missing = [k for k in need if run.run_launches[k] == 0]
+            if missing:
+                raise SystemExit(f"phase 11b: {label} rank {r} did not "
+                                 f"launch {missing}")
+        if algo == "ggn":
+            held_envelope(label, mr.runs[0].objective,
+                          [run.objective for run in local])
+        else:
+            held_rmse(label, errors(mr.runs[0]), errors(local[0]), DIST_TOL)
+            held_factors(torch, label, mr.runs[0].factors, local[0].factors,
+                         DIST_TOL)
+        counts[label] = kernel_sums(mr.runs)
+        del local
+        torch.cuda.empty_cache()
+    return counts
+
+
+def held_envelope(label, got, runs):
+    """Hold GGN's objective per iteration within DIST_GGN_OBJ_TOL of the
+    envelope (least to largest) of the LOCAL runs' objectives."""
+    for i, a in enumerate(got):
+        vals = [r[i] for r in runs]
+        lo, hi = min(vals), max(vals)
+        spread = (hi - lo) / abs(lo)
+        log(f"  {label} objective {i}: {a!r}; LOCAL under {len(runs)} "
+            f"summation orders {lo!r} to {hi!r} (spread {spread:.2e})")
+        if not (lo - DIST_GGN_OBJ_TOL * abs(lo) <= a
+                <= hi + DIST_GGN_OBJ_TOL * abs(hi)):
+            raise SystemExit(
+                f"phase 11b: {label} objective {i} = {a!r} lies outside "
+                f"the LOCAL runs' [{lo!r}, {hi!r}] widened by "
+                f"{DIST_GGN_OBJ_TOL} (relative)")
+
+
+def _dist_rank(rank, world, tmp):
+    """One rank of 11c (the target of the spawned processes): the
+    row-sharded pair at 80 M, the butterfly, the compressed psum and the
+    distributed transpose at 2 M, each against the LOCAL result the rank
+    computes itself; writes its errors and launch counts as JSON."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import collectives as coll
+    from repro_torch.core.distributed import (DistLayout, mttkrp_rowsharded,
+                                              multilinear_rowsharded,
+                                              sparse_allreduce_butterfly)
+    from repro_torch.core.sparse_tensor import SparseTensor
+    from repro_torch.core.tttp import multilinear_values
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops as kops
+    from repro_torch.optim import compressed_psum
+    from repro_torch.planner.dispatch import bucketed_mttkrp
+    from repro_torch.sparse import ops as sops
+    from repro_torch.sparse import redistribute
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(tmp, "store"), world), rank=rank, world_size=world)
+    out = {"rank": rank}
+    try:
+        lay = DistLayout((world,), ("data",), None, ("data",))
+        ctx = lay.ctx
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        full = synthetic.shuffle_and_pad(
+            synthetic.function_tensor(DIMS, NNZ, gen), gen, world)
+        fs = [torch.randn(d, RANK, generator=gen, device=dev) / RANK ** 0.5
+              for d in DIMS]
+        want_t = multilinear_values(full, fs)
+        want_m = bucketed_mttkrp(full, [None, fs[1], fs[2]], 0, BLOCK_ROWS)
+        st = lay.shard(full)
+        n = st.cap
+        want_t = want_t[rank * n:(rank + 1) * n].clone()
+        rows = DIMS[0] // world
+        want_m = want_m[rank * rows:(rank + 1) * rows].clone()
+        del full
+        torch.cuda.empty_cache()
+        local = [lay.slice(f, ("data", None)) for f in fs]
+        for h in (1, 2):
+            kops.reset_launch_counts()
+            coll.reset_counts()
+            got_t = multilinear_rowsharded(st, local, ctx, h_slices=h)
+            got_m = mttkrp_rowsharded(st, local, 0, ctx, h_slices=h)
+            torch.cuda.synchronize()
+            out[f"rowsharded h={h}"] = {
+                "tttp_err": float((got_t - want_t).abs().max()),
+                "tttp_scale": float(want_t.abs().max()),
+                "mttkrp_err": float((got_m - want_m).abs().max()),
+                "mttkrp_scale": float(want_m.abs().max()),
+                "launches": kops.launch_counts(),
+                "collectives": coll.counts()}
+        del st, want_t, want_m, got_t, got_m
+        torch.cuda.empty_cache()
+        # butterfly: every rank's block, half full, from its own seed
+        blocks = []
+        for r in range(world):
+            g = torch.Generator(device=dev).manual_seed(SEED + 1 + r)
+            m = SMALL_NNZ // world
+            b = synthetic.function_tensor(SMALL_DIMS, m, g, cap=2 * m)
+            blocks.append(b)
+        want_b = blocks[0]
+        for b in blocks[1:]:
+            want_b = sops.sparse_add_union(want_b, b)
+        kops.reset_launch_counts()
+        coll.reset_counts()
+        got_b = sparse_allreduce_butterfly(blocks[rank])
+        k = int(want_b.valid.sum())
+        out["butterfly"] = {
+            "entries": k, "got_entries": int(got_b.valid.sum()),
+            "indices_equal": bool(torch.equal(got_b.indices[:k],
+                                              want_b.indices[:k])),
+            "values_err": float((got_b.values[:k]
+                                 - want_b.values[:k]).abs().max()),
+            "collectives": coll.counts()}
+        del blocks, want_b, got_b
+        # compressed psum of a factor-sized gradient
+        gs = [torch.randn(SMALL_DIMS[0] * RANK, generator=torch.Generator(
+            device=dev).manual_seed(SEED + 100 + r), device=dev)
+              for r in range(world)]
+        exact = sum(gs)
+        got_c, _ = compressed_psum(gs[rank], torch.zeros_like(gs[rank]))
+        out["compressed_psum"] = {
+            "rel_err": float((got_c - exact).abs().max()
+                             / exact.abs().max())}
+        # distributed transpose: a global re-sort, against the local one
+        g = torch.Generator(device=dev).manual_seed(SEED + 200)
+        tr = synthetic.shuffle_and_pad(
+            synthetic.function_tensor(SMALL_DIMS, SMALL_NNZ, g), g, world)
+        whole = redistribute.transpose_distributed(tr, (2, 1, 0))
+        block = redistribute.transpose_distributed(lay.shard(tr), (2, 1, 0),
+                                                   ctx=ctx)
+        n = block.cap
+        out["transpose"] = {
+            "equal": bool(torch.equal(block.indices,
+                                      whole.indices[rank * n:(rank + 1) * n])
+                          and torch.equal(block.values, whole.values[
+                              rank * n:(rank + 1) * n])
+                          and torch.equal(block.valid, whole.valid[
+                              rank * n:(rank + 1) * n])),
+            "sorted_mode": block.sorted_mode}
+        with open(os.path.join(tmp, f"rank_{rank}.json"), "w") as f:
+            json.dump(out, f)
+        # no rank tears its connections down while another works
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_dist_collectives(torch):
+    """11c: the collectives on the card, at 2 and 4 gloo ranks sharing
+    it."""
+    import torch.multiprocessing as mp
+    counts = {}
+    for world in (2, 4):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+        try:
+            t0 = time.perf_counter()
+            mp.start_processes(_dist_rank, args=(world, tmp), nprocs=world,
+                               join=True, start_method="spawn")
+            wall = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(tmp, f"rank_{r}.json")) as f:
+                    ranks.append(json.load(f))
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"  11c at {world} ranks: {wall:.1f} s")
+        for res in ranks:
+            r = res["rank"]
+            for h in (1, 2):
+                x = res[f"rowsharded h={h}"]
+                log(f"    rank {r} row-sharded h={h} at {NNZ // world} "
+                    f"nonzeros: max |TTTP - LOCAL| {x['tttp_err']:.2e} (max "
+                    f"{x['tttp_scale']:.2e}), max |MTTKRP - LOCAL| "
+                    f"{x['mttkrp_err']:.2e} (max {x['mttkrp_scale']:.2e}), "
+                    f"launches {x['launches']}, all_gather "
+                    f"{x['collectives']['all_gather']} reduce_scatter "
+                    f"{x['collectives']['reduce_scatter']}")
+                if not (x["tttp_err"] <= MAIN_RTOL * x["tttp_scale"]
+                        and x["mttkrp_err"] <= MAIN_RTOL
+                        * x["mttkrp_scale"]):
+                    raise SystemExit(f"phase 11c: row-sharded h={h} rank {r} "
+                                     f"disagrees with the LOCAL kernels")
+                if x["launches"]["tttp"] != h or \
+                        x["launches"]["mttkrp"] != h:
+                    raise SystemExit(f"phase 11c: row-sharded h={h} rank {r} "
+                                     f"launched {x['launches']}, not {h} "
+                                     f"TTTP and {h} MTTKRP")
+                label = f"dist rowsharded {world} ranks h={h}"
+                for k, n in x["launches"].items():
+                    counts.setdefault(label, {}).setdefault(k, 0)
+                    counts[label][k] += n
+            b = res["butterfly"]
+            log(f"    rank {r} butterfly: {b['got_entries']} entries (sum of "
+                f"blocks {b['entries']}), max |value - sum| "
+                f"{b['values_err']:.2e}, {b['collectives']['p2p']} "
+                f"exchanges")
+            if not (b["indices_equal"] and b["got_entries"] == b["entries"]
+                    and b["values_err"] <= 1e-5):
+                raise SystemExit(f"phase 11c: butterfly rank {r} disagrees "
+                                 f"with the sum of the blocks")
+            c = res["compressed_psum"]["rel_err"]
+            log(f"    rank {r} compressed psum: max error {c:.3e} of max "
+                f"|sum|")
+            if not c < 0.1:
+                raise SystemExit(f"phase 11c: compressed psum rank {r} off by "
+                                 f"{c} (bound 0.1)")
+            t = res["transpose"]
+            if not (t["equal"] and t["sorted_mode"] == 0):
+                raise SystemExit(f"phase 11c: transpose_distributed rank {r} "
+                                 f"differs from the local transpose")
+        log(f"    transpose_distributed equals the local one on all {world} "
+            f"ranks")
+    return counts
+
+
+def phase_dist(torch, ref):
+    """Phase 11: distribution on the card. Returns each run's launches."""
+    t0 = time.perf_counter()
+    log("phase 11: distribution (launch.complete --mesh; gloo ranks share "
+        "the card, nccl takes one rank per card)")
+    counts = phase_dist_main(torch, ref)
+    counts.update(phase_dist_algorithms(torch))
+    counts.update(phase_dist_collectives(torch))
+    log(f"phase 11: passed in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2400,6 +2797,8 @@ def main():
     # freed
     planner_counts = phase_planner(torch, run)
     tile_counts, tile_tables = phase_tiles(torch, run)
+    # phase 11 holds its distributed runs against phase 3's LOCAL run
+    main_ref = {"rmse": errors(run), "factors": [f.cpu() for f in run.factors]}
     # free phase 3's dataset (phases 6, 9 and 10 ran on it) before phase 7
     del run
     torch.cuda.empty_cache()
@@ -2413,12 +2812,14 @@ def main():
         planner_counts.update(phase_planner_serve(torch, dump))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # each kernel's launches in every run of phases 3, 6, 7, 8, 9 and 10,
-    # each counted from zero, and phase 10's lattice timings at the row's
-    # layout
+    torch.cuda.empty_cache()
+    dist_counts = phase_dist(torch, main_ref)
+    # each kernel's launches in every run of phases 3, 6, 7, 8, 9, 10 and
+    # 11 (summed over a mesh run's ranks), each counted from zero, and
+    # phase 10's lattice timings at the row's layout
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
              **solver_counts, **stream_counts, **serve_counts,
-             **planner_counts, **tile_counts}
+             **planner_counts, **tile_counts, **dist_counts}
     for row in kernels:
         group = next(g for g in ("tttp", "mttkrp", "cg_matvec")
                      if row["name"].startswith(g))

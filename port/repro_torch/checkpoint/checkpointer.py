@@ -72,6 +72,12 @@ def tree_map(fn: Callable, tree):
     return _rebuild(tree, iter([fn(leaf) for leaf in tree_leaves(tree)]))
 
 
+def tree_map_with_path(fn: Callable, tree):
+    """``fn(key, leaf)`` of every leaf, ``key`` the leaf's checkpoint name."""
+    return _rebuild(tree, iter([fn(key, leaf)
+                                for key, leaf in _leaf_paths(tree).items()]))
+
+
 def _leaf_paths(tree) -> Dict[str, Any]:
     out = {}
     for path, leaf in _entries(tree):
@@ -194,11 +200,15 @@ def _place(arr: np.ndarray, like_leaf):
     return arr
 
 
-def restore(directory: str, step: int, like):
+def restore(directory: str, step: int, like,
+            shard_fn: Optional[Callable[[str, np.ndarray], Any]] = None):
     """Restore one step into the structure of ``like``; returns ``(state,
     manifest)``. Every leaf is checked against the manifest's shape and
-    dtype and against ``like``, and lands on the device of ``like``'s
-    leaf."""
+    dtype, and lands on the device of ``like``'s leaf.
+
+    ``shard_fn(key, arr)`` cuts each logical leaf to this rank's block
+    (the elastic restore: ``like`` then holds the blocks); the block is
+    what is checked against ``like``. Without it the logical leaf is."""
     path = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -212,7 +222,13 @@ def restore(directory: str, step: int, like):
     out = []
     for key, like_leaf in leaves.items():
         arr = np.load(os.path.join(path, key + ".npy"))
-        _validate_leaf(path, key, arr, recorded[key], like_leaf)
+        _validate_leaf(path, key, arr, recorded[key],
+                       like_leaf if shard_fn is None else arr)
+        if shard_fn is not None:
+            arr = np.ascontiguousarray(shard_fn(key, arr))
+            _validate_leaf(path, key, arr, {"shape": list(arr.shape),
+                                            "dtype": str(arr.dtype)},
+                           like_leaf)
         out.append(_place(arr, like_leaf))
     return _rebuild(like, iter(out)), manifest
 

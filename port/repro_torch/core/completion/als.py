@@ -60,9 +60,19 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
     reference's ``matvec_path`` does. ``mttkrp_path`` forces the MTTKRP
     half onto a planner candidate: the matvec then runs as TTTP over the
     bucket view followed by that MTTKRP, ``h_slices`` column slices on
-    both halves."""
+    both halves.
+
+    Under a model axis the TTTP half's partial needs a psum over it before
+    the MTTKRP half, which one fused pass cannot hold: ``fused`` and
+    ``dense`` step down to the cost model's choice (``auto``), as in the
+    reference, and ``tttp_mttkrp`` psums z between its halves."""
     if matvec_path not in MATVEC_PATHS:
         raise ValueError(f"matvec_path {matvec_path!r} not in {MATVEC_PATHS}")
+    if ctx.model is not None and (
+            matvec_path == "dense" or (matvec_path == "fused"
+                                       and mttkrp_path is None
+                                       and h_slices == 1)):
+        matvec_path = "auto"
     if matvec_path not in DIRECT_MATVEC_PATHS:
         from repro_torch.planner import planned_cg_matvec
         y = planned_cg_matvec(
@@ -74,7 +84,9 @@ def gram_matvec(omega: SparseTensor, factors: Sequence[torch.Tensor],
               else _planned_mttkrp(mttkrp_path, block_rows))
     return ctx.psum_data(kops.bucket_matvec(
         omega.row_buckets(mode, block_rows), factors, x, matvec_path,
-        h_slices, mttkrp=mttkrp)) + lam * x
+        h_slices, mttkrp=mttkrp,
+        psum_model=ctx.psum_model if ctx.model is not None else None)) \
+        + lam * x
 
 
 def bucket_gram_matvec(buckets, factors: Sequence[torch.Tensor],

@@ -38,11 +38,15 @@ def gcp_adam_init(factors: Sequence[torch.Tensor]) -> AdamState:
 
 def gcp_loss(st: SparseTensor, factors: Sequence[torch.Tensor], loss: Loss,
              lam: float, ctx: AxisCtx = LOCAL) -> torch.Tensor:
-    """The objective, a 0-d tensor on the device."""
+    """The objective, a 0-d tensor on the device. Under a model axis the
+    regulariser of the column slices is psum'd over it (the reference sums
+    the local slices only, so its ranks would each see another objective
+    and could accept different steps)."""
     model = ctx.psum_model(multilinear_values(st, list(factors)))
     data = ctx.psum_data(torch.sum(torch.where(
         st.mask, loss.value(st.values, model), 0.0)))
-    reg = lam * sum(torch.sum(torch.square(f)) for f in factors)
+    reg = lam * ctx.psum_model(sum(torch.sum(torch.square(f))
+                                   for f in factors))
     return data + reg
 
 

@@ -13,6 +13,12 @@ be ``torch.multinomial`` here, which takes at most 2^24 categories. Each
 sweep's sample is a new tensor, so its MTTKRPs build one CCSR bucket
 pattern per mode (a sort on the device). :func:`sgd_update` runs the
 update on a sample the caller provides.
+
+Under a data axis each shard samples its own nonzeros and scales by its
+own valid count over S; the psum over the data axes then sums the
+per-shard expectations. :func:`shard_seed` decorrelates the shards' draws
+(the reference folds the flattened data-axis index into its key); a data
+axis of size 1 keeps the caller's seed, so it reproduces the LOCAL draws.
 """
 from __future__ import annotations
 
@@ -23,6 +29,15 @@ import torch
 from repro_torch.core.distributed import LOCAL, AxisCtx, mttkrp_ctx
 from repro_torch.core.sparse_tensor import SparseTensor
 from repro_torch.core.tttp import multilinear_values
+
+
+def shard_seed(seed: int, ctx: AxisCtx = LOCAL) -> int:
+    """The seed of this data shard's sample: ``seed`` itself on one shard,
+    else ``seed`` folded with the flattened data-axis index."""
+    if ctx.data is None or ctx.data_size() <= 1:
+        return seed
+    from repro_torch.core.completion import fold_seed
+    return fold_seed(seed, ctx.data_index())
 
 
 def sample_entries(generator: torch.Generator, st: SparseTensor,

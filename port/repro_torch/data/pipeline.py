@@ -1,4 +1,4 @@
-"""Single-device ingest of a completion dataset.
+"""Ingest of a completion dataset, on one device or onto a rank layout.
 
 ``CompletionDataset`` builds the CCSR bucket pattern of every mode once
 (the Ω pattern does not change across sweeps) and derives ``omega``, the
@@ -6,6 +6,12 @@
 the data tensor. An in-memory tensor is shuffled first; a streamed one
 (:meth:`CompletionDataset.from_stream`) is not, and takes its bucket
 capacities from the occupancy counts streamed at ingest.
+
+With ``mesh=`` (a ``core.distributed.DistLayout``) the tensor is padded to
+a multiple of the data-axis size and each rank keeps its block of the
+nonzero slots (``tensor``), with bucket views over its own nonzeros only.
+Every rank ingests the same logical tensor (the same seed or stream), so
+the blocks partition it.
 """
 from __future__ import annotations
 
@@ -25,12 +31,16 @@ from repro_torch.sparse.ccsr import IncrementalBucketBuilder, bucket_pattern
 class CompletionDataset:
 
     def __init__(self, st: SparseTensor, generator: torch.Generator,
-                 block_rows: Optional[int] = None):
+                 block_rows: Optional[int] = None, mesh=None):
         """``block_rows`` defaults to the planner config's, so ingest and
-        planner dispatch read one bucket view."""
+        planner dispatch read one bucket view. ``mesh`` (a ``DistLayout``)
+        shards the nonzeros over its data axes."""
         block_rows = block_rows or default_config().block_rows
-        tensor = synthetic.shuffle_and_pad(st, generator, num_shards=1)
-        self._finish(tensor, block_rows, num_shards=1, stats=None)
+        num_shards = 1 if mesh is None else mesh.data_size
+        tensor = synthetic.shuffle_and_pad(st, generator,
+                                           num_shards=num_shards)
+        self._finish(tensor, block_rows, num_shards=num_shards, stats=None,
+                     mesh=mesh)
 
     @classmethod
     def from_stream(cls, chunks, shape, num_shards: Optional[int] = None,
@@ -45,32 +55,48 @@ class CompletionDataset:
         the streamed occupancy counts give. No shuffle: the coordinate hash
         balances the shards, and the layout is deterministic (the same
         stream gives the same entries for any shard count). ``test`` holds
-        the held-out tensor (None when ``test_fraction`` is 0)."""
+        the held-out tensor (None when ``test_fraction`` is 0; whole on every
+        rank under ``mesh``).
+
+        ``mesh`` (a ``DistLayout``): ``num_shards`` defaults to its
+        data-axis size and must be a multiple of it (each rank keeps
+        ``num_shards / data_size`` consecutive shard blocks, a contiguous
+        run of slots); otherwise ValueError."""
         from repro_torch.data import streaming
-        if mesh is not None:
-            raise ValueError("mesh: the port runs on one device so far")
+        data_size = 1 if mesh is None else mesh.data_size
+        num_shards = num_shards or data_size
+        if num_shards % data_size:
+            raise ValueError(f"num_shards={num_shards} is not a multiple of "
+                             f"the mesh's data-axis size {data_size}")
         block_rows = block_rows or default_config().block_rows
         train, test, stats = streaming.ingest(
-            chunks, shape, num_shards=num_shards or 1, spool_dir=spool_dir,
+            chunks, shape, num_shards=num_shards, spool_dir=spool_dir,
             test_fraction=test_fraction, block_rows=block_rows,
             device=device)
         ds = cls.__new__(cls)
-        ds._finish(train, block_rows, num_shards=num_shards or 1,
-                   stats=stats)
+        ds._finish(train, block_rows, num_shards=num_shards, stats=stats,
+                   mesh=mesh)
         ds.test = test
         return ds
 
     def _finish(self, tensor: SparseTensor, block_rows: int,
-                num_shards: int, stats) -> None:
+                num_shards: int, stats, mesh=None) -> None:
         self.stats = stats
         self.test = None
         self.num_shards = num_shards
         self.block_rows = block_rows
+        self.mesh = mesh
+        self.global_nnz = tensor.nnz
+        if mesh is not None:
+            tensor = mesh.shard(tensor)
         counts = getattr(stats, "bucket_counts", None)
-        # streamed counts give the capacity with no extra counting pass
+        # streamed counts give the capacity with no extra counting pass; they
+        # count the whole stream, so a rank holding one shard of several
+        # counts its own
         builder = (IncrementalBucketBuilder(tensor.shape, block_rows, counts)
                    if counts is not None
-                   and stats.bucket_block_rows == block_rows else None)
+                   and stats.bucket_block_rows == block_rows
+                   and (mesh is None or mesh.data_size == 1) else None)
         for mode in range(tensor.ndim):
             tensor.attach_pattern(
                 mode, block_rows,
@@ -82,7 +108,8 @@ class CompletionDataset:
     def gather_global(self):
         """Host-side canonical view of the valid entries: (indices, values)
         sorted by linearized coordinate. Shard layout and padding cancel
-        out, so two ingests of one logical tensor compare bit for bit."""
+        out, so two ingests of one logical tensor compare bit for bit.
+        Under a mesh: this rank's block only."""
         idx = self.tensor.indices.cpu().numpy()
         vals = self.tensor.values.cpu().numpy()
         valid = self.tensor.valid.cpu().numpy()

@@ -223,7 +223,8 @@ def bucket_matvec(buckets, factors: Sequence[Optional[torch.Tensor]],
                   x: torch.Tensor, path: str = "fused", h_slices: int = 1,
                   x_factors: Optional[Sequence] = None,
                   x_slices: Optional[int] = None,
-                  mttkrp: Optional[Callable] = None) -> torch.Tensor:
+                  mttkrp: Optional[Callable] = None,
+                  psum_model: Optional[Callable] = None) -> torch.Tensor:
     """G_ω x (paper eq. 3, without the λ term) over a bucket view of Ω along
     ``buckets.mode``: nothing is gathered through the bucket pattern per
     call. The schedules of the solvers' and the planner's Gram matvec:
@@ -240,15 +241,15 @@ def bucket_matvec(buckets, factors: Sequence[Optional[torch.Tensor]],
     two rank halves read different matrices), cut into ``x_slices``
     (default ``h_slices``). ``mttkrp(zb, fs)`` runs the MTTKRP half on the
     view ``zb`` and one column slice ``fs`` of the factors (default
-    :func:`mttkrp_bucketed`, the MTTKRP kernel). Single-device: the
-    reference's psum over a model axis between the halves has no
-    counterpart until the port distributes."""
+    :func:`mttkrp_bucketed`, the MTTKRP kernel). ``psum_model`` sums z
+    over a model axis between the halves (factor columns sliced over it):
+    the fused pass has no place for it, so with it the halves run apart."""
     if path not in BUCKET_MATVEC_PATHS:
         raise ValueError(f"matvec path {path!r} not in {BUCKET_MATVEC_PATHS}")
     mode = buckets.mode
     num_rows = buckets.shape[mode]
     if (path == "fused" and h_slices == 1 and x_factors is None
-            and mttkrp is None):
+            and mttkrp is None and psum_model is None):
         return cg_matvec_bucketed(buckets, factors, x, num_rows=num_rows)
     fs = list(factors if x_factors is None else x_factors)
     fs[mode] = x
@@ -256,6 +257,8 @@ def bucket_matvec(buckets, factors: Sequence[Optional[torch.Tensor]],
     for sl in column_slices(fs, x_slices or h_slices):
         part = tttp_bucket_values(buckets, sl)
         z = part if z is None else z + part
+    if psum_model is not None:
+        z = psum_model(z)
     zb = dataclasses.replace(buckets, values=z)
     if mttkrp is None:
         def mttkrp(view, sl):

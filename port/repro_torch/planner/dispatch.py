@@ -1,6 +1,7 @@
 """Plan dispatcher: lowers a chosen (IR, path) onto the kernel library and
 the plain contractions, applying the collectives of the plan's AxisCtx
-(identities: the port runs LOCAL only).
+(``psum_data`` on outputs summed over the nonzeros, ``psum_model`` on
+inner products over column-sliced ranks; identities under LOCAL).
 
 How each family lowers (every path of an IR computes the same einsum, so
 forcing a path changes the schedule, never the result; tested in
@@ -9,6 +10,8 @@ forcing a path changes the schedule, never the result; tested in
 * REDUCE → linearised kept-mode key + ``index_add_`` (any ordered subset of
   the modes; a trailing dense value axis rides along), or densified;
 * TTTP → ``all_at_once``: ``kernels.ops.tttp``, the TTTP kernel;
+  ``rowsharded``: ``core.distributed.multilinear_rowsharded`` (per column
+  slice an all-gather of the factor rows, then the TTTP kernel);
   ``sliced``: ``core.tttp.tttp_sliced``, the TTTP kernel once per column
   slice (H = ``cost._sliced_h(R)``); ``pairwise``: ``core.tttp
   .tttp_pairwise``, plain; ``dense``: the dense multilinear model sampled
@@ -19,13 +22,18 @@ forcing a path changes the schedule, never the result; tested in
   over the tensor's cached bucket view (``SparseTensor.row_buckets(mode,
   config.block_rows)``), the MTTKRP kernel; ``t_first`` / ``kr_first``:
   ``sparse.ops``'s pairwise forms, plain; ``dense``: densified;
+  ``rowsharded``: ``core.distributed._mttkrp_rowsharded_impl`` (per column
+  slice an all-gather, the MTTKRP kernel over the rank's bucket view, a
+  reduce-scatter of the output rows);
 * MTTKRP, partial (several kept modes) → ``all_at_once``: gather, product
   and ``index_add_`` over the linearised kept key, plain;
 * CG_MATVEC (paper eq. 3) → ``fused``: ``kernels.ops.cg_matvec_bucketed``
   over the cached bucket view, the fused CG-matvec kernel;
   ``tttp_mttkrp`` / ``sliced``: ``kernels.ops.bucket_matvec``'s schedules
   over the same view (the TTTP kernel, then the MTTKRP kernel, H =
-  ``_sliced_h`` column slices for ``sliced``); ``dense``: densified.
+  ``_sliced_h`` column slices for ``sliced``; under a model axis the TTTP
+  half's z is psum'd over it before the MTTKRP half); ``dense``:
+  densified.
 
 Classic ``all_at_once`` MTTKRP is where the port departs from the
 reference. The cost model prices ``all_at_once`` and ``bucketed`` alike
@@ -160,8 +168,13 @@ def _kept_key(st: SparseTensor, keep_modes, kept_shape) -> torch.Tensor:
 
 
 def _exec_tttp(ir: pir.ContractionIR, st: SparseTensor, dense_ops,
-               path: str, ctx: AxisCtx):
+               path: str, ctx: AxisCtx, config: PlannerConfig):
     factors = _factors_by_mode(ir, dense_ops)
+    if path == "rowsharded":
+        from repro_torch.core.distributed import multilinear_rowsharded
+        acc = multilinear_rowsharded(st, factors, ctx,
+                                     h_slices=config.h_slices)
+        return st.with_values(st.values * acc)
     if path == "all_at_once":
         res = kops.tttp(st, factors)
     elif path == "sliced":
@@ -247,6 +260,13 @@ def _exec_mttkrp(ir: pir.ContractionIR, st: SparseTensor, dense_ops,
         return ctx.psum_data(
             _reorder(_mttkrp_general(ir, st, factors), canon, ir.out))
     mode = ir.keep_modes[0]
+    if path == "rowsharded":
+        from repro_torch.core.distributed import _mttkrp_rowsharded_impl
+        # the reduce-scatter inside already sums over the data axes
+        res = _mttkrp_rowsharded_impl(st, factors, mode, ctx,
+                                      h_slices=config.h_slices,
+                                      block_rows=config.block_rows)
+        return _reorder(res, canon, ir.out)
     if path in ("all_at_once", "bucketed"):
         res = bucketed_mttkrp(st, factors, mode, config.block_rows)
     elif path == "t_first":
@@ -280,7 +300,9 @@ def _exec_cg_matvec(ir: pir.ContractionIR, st: SparseTensor, dense_ops,
     """Weighted Gram matvec (paper eq. 3): the values of ``st`` are the
     weights ω_n, ``s_fac[mode]`` is the CG direction x. Every path but
     ``dense`` runs ``kernels.ops.bucket_matvec`` over the cached bucket
-    view of ``st``."""
+    view of ``st``. Under a model axis the TTTP half's partial is psum'd
+    over it before the MTTKRP half (``fused`` and ``dense`` are not
+    candidates there); the output is psum'd over the data axes."""
     if path == "dense":
         return ctx.psum_data(_densified_einsum(ir, st, dense_ops))
     if path not in kops.BUCKET_MATVEC_PATHS:
@@ -298,7 +320,8 @@ def _exec_cg_matvec(ir: pir.ContractionIR, st: SparseTensor, dense_ops,
         h_slices=pcost._sliced_h(ir.rank_size) if sliced else 1,
         x_factors=None if shared else s_fac,
         x_slices=(pcost._sliced_h(ir.size_of(ir.rank2_index)) if sliced
-                  else 1))
+                  else 1),
+        psum_model=ctx.psum_model if ctx.model is not None else None)
     return ctx.psum_data(_reorder(res, canon, ir.out))
 
 
@@ -348,7 +371,7 @@ def _execute(ir: pir.ContractionIR, path: str, operands: Sequence,
     if ir.kind == pir.REDUCE:
         return _exec_reduce(ir, st, path, ctx)
     if ir.kind == pir.TTTP:
-        return _exec_tttp(ir, st, dense_ops, path, ctx)
+        return _exec_tttp(ir, st, dense_ops, path, ctx, config)
     if ir.kind == pir.TTM:
         return _exec_ttm(ir, st, dense_ops, path, ctx)
     if ir.kind == pir.MTTKRP:

@@ -48,8 +48,8 @@ class DistInfo:
     """Static distribution signature of a contraction call (DESIGN.md §9).
 
     Built from the :class:`~repro_torch.core.distributed.AxisCtx` the caller
-    runs under. The port runs LOCAL only (every size 1), so a non-local
-    ``DistInfo`` reaches only the cost model, never dispatch:
+    runs under (its axis sizes, host ints); dispatch applies the ctx's
+    collectives, the cost model prices them:
 
     * ``data_size``  — product of the data-axis sizes: nonzeros sharded,
       factor rows replicated; outputs on factor rows need a psum(data);

@@ -5,9 +5,10 @@ A :class:`Plan` binds a classified :class:`~repro_torch.planner.ir
 attached. Plans are cached on the *static signature* of the call:
 
     (normalised expr, per-operand (kind, shape, cap, nnz, dtype, device),
-     override, AxisCtx, PlannerConfig)
+     override, AxisCtx, DistInfo, PlannerConfig)
 
-so planning happens once per (expression, operand layout, device) and
+so planning happens once per (expression, operand layout, device,
+distribution) and
 identical calls return the *identical* Plan object. The key is built from
 Python metadata alone (``SparseTensor.nnz`` is a Python int), so a cached
 call costs one dictionary lookup and never waits for the device.
@@ -66,7 +67,8 @@ class Plan:
 
 
 def _signature(expr: str, operands: Sequence, path: Optional[str],
-               ctx: AxisCtx, config: PlannerConfig) -> Tuple:
+               ctx: AxisCtx, dist: Optional[pir.DistInfo],
+               config: PlannerConfig) -> Tuple:
     sig = []
     for op in operands:
         if isinstance(op, SparseTensor):
@@ -75,7 +77,7 @@ def _signature(expr: str, operands: Sequence, path: Optional[str],
                         op.device))
         else:
             sig.append(("dense", tuple(op.shape), op.dtype, op.device))
-    return (pir.normalize(expr), tuple(sig), path, ctx, config)
+    return (pir.normalize(expr), tuple(sig), path, ctx, dist, config)
 
 
 _CACHE: Dict[Tuple, Plan] = {}
@@ -102,18 +104,14 @@ def _time_path(ir: pir.ContractionIR, path: str, operands: Sequence,
                        kind=str(ir.kind), expr=ir.expr)
 
 
-def _check_local(ctx: AxisCtx, rowsharded: bool) -> None:
-    """The port runs LOCAL only: refuse what would distribute."""
-    if rowsharded:
-        raise NotImplementedError(
-            "rowsharded=True (factor rows sharded over the data axes, paper "
-            "Fig. 2) is distribution, ROADMAP.md Queue A item 4; the port "
-            "runs on one device")
-    if ctx.data_size() != 1 or ctx.model_size() != 1 or \
-            ctx.model is not None:
-        raise NotImplementedError(
-            f"a non-LOCAL ctx ({ctx!r}) is distribution, ROADMAP.md Queue A "
-            f"item 4; the port runs on one device")
+def _dist_info(ctx: AxisCtx, rowsharded: bool) -> Optional[pir.DistInfo]:
+    """Static distribution signature of a ctx (host ints): None when the
+    call runs as on one device."""
+    data = ctx.data_size()
+    model = ctx.model_size()
+    if data == 1 and model == 1 and not rowsharded:
+        return None
+    return pir.DistInfo(data, model, rowsharded)
 
 
 def plan_contraction(expr: str, operands: Sequence,
@@ -131,11 +129,15 @@ def plan_contraction(expr: str, operands: Sequence,
     ``config`` fixes the bucket granularity the bucketed and fused paths
     read (default: :func:`~repro_torch.planner.config.default_config`).
 
+    ``ctx`` names the axes the call runs under: the cost model adds the
+    matching collectives and dispatch applies them; ``rowsharded``
+    declares the dense factors' ROWS sharded over the data axes (paper
+    Fig. 2), whose only candidate is ``rowsharded``.
+
     Refused with a message, never ignored: ``validate=True`` (the
     reference's abstract all-paths-agree certificate, ``ROADMAP.md`` Queue A
-    item 5, the static gates), ``validate_spmd=True`` (a check of jax's
-    collective schedule, item 5), and a non-LOCAL ``ctx``,
-    ``rowsharded=True`` or ``path="rowsharded"`` (distribution, item 4).
+    item 5, the static gates) and ``validate_spmd=True`` (a check of jax's
+    collective schedule, item 5).
     """
     if validate:
         raise NotImplementedError(
@@ -145,14 +147,11 @@ def plan_contraction(expr: str, operands: Sequence,
         raise NotImplementedError(
             "validate_spmd=True certifies a jax collective schedule; the "
             "port's counterpart is ROADMAP.md Queue A item 5")
-    if path == "rowsharded":
-        raise NotImplementedError(
-            "path='rowsharded' is distribution, ROADMAP.md Queue A item 4; "
-            "the port runs on one device")
     ctx = ctx if ctx is not None else LOCAL
-    _check_local(ctx, rowsharded)
     config = config if config is not None else default_config()
-    key = _signature(expr, operands, path, ctx, config)
+    # the axis SIZES go into the key beside the ctx's names
+    dist = _dist_info(ctx, rowsharded)
+    key = _signature(expr, operands, path, ctx, dist, config)
     cached = _CACHE.get(key)
     capturing = not obs.trace_clean()
     if cached is not None and (path is not None or cached.autotuned
@@ -163,7 +162,7 @@ def plan_contraction(expr: str, operands: Sequence,
             f"no cached plan for {pir.normalize(expr)!r} while a CUDA graph "
             f"is being captured: run the same call once eagerly first")
 
-    ir = pir.build_ir(expr, operands)
+    ir = pir.build_ir(expr, operands, dist=dist)
     ranking = pcost.rank_paths(ir)
     candidates = tuple(c.path for c in ranking)
     if path is not None:
@@ -173,6 +172,11 @@ def plan_contraction(expr: str, operands: Sequence,
                              f"candidates: {candidates}")
         plan = Plan(ir, path, ranking, ctx=ctx, config=config)
     elif autotune:
+        if dist is not None:
+            raise ValueError(
+                "autotune=True under a distributed ctx: each rank would time "
+                "the candidates on its own and could pin another path; force "
+                "one with path= instead")
         feasible = [c.path for c in ranking
                     if c.mem <= AUTOTUNE_MEM_BUDGET_WORDS]
         if not feasible:

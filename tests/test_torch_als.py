@@ -8,6 +8,7 @@ through its iterations, and on these problems the factors still agree to
 better than 3e-5. Both of the port's matvec routes (the fused CG-matvec
 kernel's plain version and TTTP + bucketed MTTKRP) are held to it."""
 import os
+import subprocess
 import sys
 
 import jax
@@ -240,17 +241,83 @@ def test_cli_from_npz_matches_reference_sweep(tmp_path, capsys, path):
             np.testing.assert_array_equal(z[f"factor_{d}"], f.numpy())
 
 
+# tests/test_complete_cli.py's CG settings (30 iterations to a 1e-7
+# residual), at which the ranks' summation order stays inside 1e-4
+MESH_ARGS = ["--device", "cpu", "--force-host-devices", "8", "--dims",
+             "40,30,20", "--nnz", "3000", "--rank", "4", "--sweeps", "2",
+             "--cg-iters", "30", "--cg-tol", "1e-7", "--seed", "1"]
+
+
+def _mesh_cli(tmp_path, argv):
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(PORT))
+    out = subprocess.run([sys.executable, "-m",
+                          "repro_torch.launch.complete", *argv], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp_path))
+    assert out.returncode == 0, out.stdout[-3000:] + "\n---\n" + \
+        out.stderr[-6000:]
+    return out.stdout
+
+
 @pytest.mark.parametrize("argv", [["--mesh", "2,1"],
                                   ["--mesh", "4,2", "--ckpt-dir", "ck"],
                                   ["--mesh", "2,1", "--plan-cache",
                                    "plans.json"]])
-def test_cli_refuses_unported(argv):
-    """--mesh (distribution) is refused, naming its ROADMAP.md item, with
-    or without flags that run (checkpoints, --dataset netflix and
-    --dump-factors DIR: tests/test_torch_{experiment,checkpoint}.py;
-    --plan-cache, the kernel-tile tuner: tests/test_torch_tuner.py)."""
-    with pytest.raises(SystemExit, match="port.*Queue A item"):
-        complete.main(["--device", "cpu"] + argv)
+def test_cli_mesh_runs(tmp_path, argv):
+    """--mesh (refused before distribution was ported) runs on the CPU's
+    gloo ranks, alone and with the flags that run beside it: the data-axis
+    run equals the LOCAL run from the same seed (rank 0's dump, rtol =
+    atol = 1e-4); under ``--ckpt-dir`` the checkpoint holds the logical
+    factors (it restores onto one device) and a rerun resumes from it on
+    every rank; ``--plan-cache`` is skipped with the reference's note."""
+    dump = tmp_path / "mesh.npz"
+    text = _mesh_cli(tmp_path, MESH_ARGS + argv + ["--dump-factors",
+                                                   str(dump)])
+    assert "backend=gloo" in text and "sweep   1" in text
+    with np.load(dump) as z:
+        got = [z[f"factor_{d}"] for d in range(3)]
+    if "--plan-cache" in argv:
+        assert "--plan-cache tuning skipped under --mesh" in text
+        assert not (tmp_path / "plans.json").exists()
+    if "--ckpt-dir" in argv:
+        from repro_torch import checkpoint as ckpt
+        like = {f"[{d}]": np.zeros_like(f) for d, f in enumerate(got)}
+        step = ckpt.latest_step(str(tmp_path / "ck"))
+        state, _ = ckpt.restore(str(tmp_path / "ck"), step,
+                                [torch.zeros(f.shape) for f in got])
+        assert step == 1 and len(like) == 3
+        for g, s in zip(got, state):
+            np.testing.assert_array_equal(s.numpy(), g)
+        again = _mesh_cli(tmp_path, MESH_ARGS + argv + [
+            "--dump-factors", str(tmp_path / "again.npz")])
+        assert "all 2 sweeps restored" in again
+        with np.load(tmp_path / "again.npz") as z:
+            for d, g in enumerate(got):
+                np.testing.assert_array_equal(z[f"factor_{d}"], g)
+    if argv == ["--mesh", "2,1"]:
+        local = complete.main(MESH_ARGS[:2] + MESH_ARGS[4:])
+        for d, (g, w) in enumerate(zip(got, local.factors)):
+            np.testing.assert_allclose(g, w.numpy(), err_msg=f"factor {d}",
+                                       **TOL)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mesh", "2,1", "--device", "cuda"],
+     r"needs 2 devices but only \d are visible; nccl takes one card per "
+     r"rank: pass --dist-backend gloo"),
+    (["--mesh", "2,1", "--device", "cpu"],
+     r"on CPU pass --force-host-devices 2"),
+    (["--mesh", "2,1", "--device", "cpu", "--force-host-devices", "2",
+      "--dist-backend", "nccl"], r"nccl needs cards"),
+    (["--mesh", "1,3", "--device", "cpu", "--force-host-devices", "3"],
+     r"--rank 10 is not a multiple of the model axis size 3")])
+def test_cli_refuses_a_mesh_it_cannot_run(argv, match):
+    """Refused before any rank starts: more ranks than cards under nccl
+    (the reference's "needs N devices" message, naming gloo), a CPU mesh
+    without host ranks or over nccl, a rank the model axis does not
+    divide."""
+    with pytest.raises(SystemExit, match=match):
+        complete.main(argv)
 
 
 # the planner's matvec paths of the CLI (refused before the planner was

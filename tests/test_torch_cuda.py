@@ -680,3 +680,138 @@ def test_kernel_attributes_match_footprint_model(dev):
         _build.kernel_attributes("tttp", 9, 2, 256, 0)
     with pytest.raises(RuntimeError, match="kernel attributes"):
         _build.kernel_attributes("mttkrp", 16, 3, 256, 0)
+
+
+# ---------------------------------------------------------------------------
+# distribution on the card: two gloo ranks sharing it (nccl refuses two
+# ranks on one card), each launching the kernels on its own shard
+# ---------------------------------------------------------------------------
+
+_CARD_RANKS = """
+import os, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+sys.path.insert(0, os.environ["REPRO_PORT"])
+from repro_torch import interop
+from repro_torch.core.distributed import (DistLayout, mttkrp_rowsharded,
+                                          sparse_allreduce_butterfly)
+from repro_torch.kernels import ops as kops
+
+
+def rank_main(rank, inp, outdir):
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(outdir, "store"), 2), rank=rank, world_size=2)
+    try:
+        z = dict(np.load(inp))
+        lay = DistLayout((2,), ("data",), None, ("data",))
+        ctx = lay.ctx
+        st = lay.shard(interop.sparse_from_numpy(
+            z["idx"], z["vals"], z["valid"], tuple(z["shape"]), "cuda"))
+        fs = interop.factors_from_numpy([z["f0"], z["f1"], z["f2"]], "cuda")
+        kops.reset_launch_counts()
+        out = {"tttp": kops.tttp_values(st, fs).cpu().numpy()}
+        rows = [lay.slice(f, ("data", None)) for f in fs]
+        out["rs_mttkrp"] = mttkrp_rowsharded(st, rows, 0, ctx,
+                                             h_slices=2).cpu().numpy()
+        b = interop.sparse_from_numpy(z["bf_idx"][rank], z["bf_vals"][rank],
+                                      z["bf_valid"][rank], (32, 8), "cuda")
+        out["butterfly"] = sparse_allreduce_butterfly(b).todense() \
+            .cpu().numpy()
+        n = kops.launch_counts()
+        out["launches"] = np.array([n["tttp"], n["mttkrp"]])
+        np.savez(os.path.join(outdir, f"rank_{rank}.npz"), **out)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    from repro_torch.kernels import _build
+    _build.build()
+    mp.start_processes(rank_main, args=(sys.argv[1], sys.argv[2]), nprocs=2,
+                       join=True, start_method="spawn")
+    print("CARD-RANKS-OK")
+"""
+
+_CARD_RUN = {}
+
+
+def _card_ranks(tmp_path_factory):
+    """Run the two ranks once; their records and the inputs."""
+    if not _CARD_RUN:
+        import subprocess
+        tmp = tmp_path_factory.mktemp("card_ranks")
+        rng = np.random.default_rng(3)
+        shape, nnz, cap = (64, 48, 32), 3000, 3072
+        idx = np.stack([rng.integers(0, s, cap) for s in shape], 1) \
+            .astype(np.int32)
+        z = {"idx": idx, "vals": rng.uniform(0, 1, cap).astype(np.float32),
+             "valid": np.arange(cap) < nnz, "shape": np.array(shape)}
+        for d, s in enumerate(shape):
+            z[f"f{d}"] = rng.standard_normal((s, 10)).astype(np.float32)
+        bl = [(rng.integers(0, 32, (64, 2)).astype(np.int32),
+               rng.standard_normal(64).astype(np.float32),
+               np.arange(64) < 40) for _ in range(2)]
+        for k, i in (("bf_idx", 0), ("bf_vals", 1), ("bf_valid", 2)):
+            z[k] = np.stack([b[i] for b in bl])
+        z["bf_idx"][:, :, 1] %= 8
+        np.savez(tmp / "in.npz", **z)
+        (tmp / "ranks.py").write_text(_CARD_RANKS)
+        env = dict(os.environ, REPRO_PORT=os.path.abspath(PORT))
+        out = subprocess.run([sys.executable, str(tmp / "ranks.py"),
+                              str(tmp / "in.npz"), str(tmp)], env=env,
+                             capture_output=True, text=True, timeout=600)
+        assert "CARD-RANKS-OK" in out.stdout, out.stdout + out.stderr
+        _CARD_RUN["z"] = z
+        _CARD_RUN["ranks"] = [dict(np.load(tmp / f"rank_{r}.npz"))
+                              for r in range(2)]
+    return _CARD_RUN["z"], _CARD_RUN["ranks"]
+
+
+def _cpu_tensor(z):
+    return interop.sparse_from_numpy(z["idx"], z["vals"], z["valid"],
+                                     tuple(z["shape"]), "cpu")
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_run_tttp(dev, tmp_path_factory):
+    """Each rank launches TTTP on its half of the nonzeros; the halves
+    joined equal the plain version on the whole tensor."""
+    z, ranks = _card_ranks(tmp_path_factory)
+    fs = interop.factors_from_numpy([z["f0"], z["f1"], z["f2"]], "cpu")
+    want = kops.tttp_values(_cpu_tensor(z), fs).numpy()
+    got = np.concatenate([r["tttp"] for r in ranks])
+    np.testing.assert_allclose(got, want, **TOL)
+    assert all(int(r["launches"][0]) >= 1 for r in ranks)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_run_rowsharded_mttkrp(
+        dev, tmp_path_factory):
+    """The row-sharded MTTKRP at h_slices 2 (gathers through host memory,
+    the bucketed kernel per slice, a reduce-scatter) equals the plain
+    MTTKRP's row blocks."""
+    from repro_torch.sparse import ops as sops
+    z, ranks = _card_ranks(tmp_path_factory)
+    fs = interop.factors_from_numpy([z["f0"], z["f1"], z["f2"]], "cpu")
+    want = sops.mttkrp(_cpu_tensor(z), [None, fs[1], fs[2]], 0).numpy()
+    got = np.concatenate([r["rs_mttkrp"] for r in ranks])
+    np.testing.assert_allclose(got, want, **TOL)
+    assert all(int(r["launches"][1]) == 2 for r in ranks)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_the_card_run_the_butterfly(dev, tmp_path_factory):
+    """The butterfly sparse all-reduce of the two ranks' blocks: both end
+    with their dense sum."""
+    z, ranks = _card_ranks(tmp_path_factory)
+    dense = np.zeros((32, 8))
+    for r in range(2):
+        keep = z["bf_valid"][r]
+        np.add.at(dense, tuple(z["bf_idx"][r][keep].T), z["bf_vals"][r][keep])
+    for r in ranks:
+        np.testing.assert_allclose(r["butterfly"], dense, rtol=1e-5,
+                                   atol=1e-5)

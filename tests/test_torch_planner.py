@@ -473,24 +473,53 @@ def test_autotune_pins_a_measured_winner():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(validate=True), "item 5"), (dict(validate_spmd=True), "item 5"),
-    (dict(rowsharded=True), "item 4"), (dict(path="rowsharded"), "item 4"),
-    (dict(ctx="sharded"), "item 4")])
+    (dict(validate=True), "item 5"), (dict(validate_spmd=True), "item 5")])
 def test_unported_options_raise_naming_their_item(kw, item):
-    class Sharded:
-        model = "model"
-
-        def data_size(self):
-            return 2
-
-        def model_size(self):
-            return 2
-
-    if kw.get("ctx") == "sharded":
-        kw = dict(ctx=Sharded())
     st, v, w = _mttkrp_ops()
     with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
         planner.plan_contraction("ijk,jr,kr->ir", (st, v, w), **kw)
+
+
+class _Sharded:
+    """A ctx of a 2 x 2 grid as the planner reads it (names and sizes)."""
+    model = "model"
+
+    def data_size(self):
+        return 2
+
+    def model_size(self):
+        return 2
+
+
+@pytest.mark.parametrize("kw", [dict(rowsharded=True),
+                                dict(path="rowsharded"), dict(ctx="sharded")],
+                         ids=["rowsharded", "path-rowsharded", "ctx"])
+def test_distribution_options_plan_like_the_reference(kw):
+    """The distribution options (refused before they were ported) plan as
+    the reference plans them: ``rowsharded=True`` has the one candidate
+    ``rowsharded``, the path alone is not legal without it, and a ctx's
+    axis sizes reach the IR's DistInfo and the cost terms."""
+    st, v, w = _mttkrp_ops()
+    jst = JSparseTensor(jnp.asarray(st.indices.numpy()),
+                        jnp.asarray(st.values.numpy()),
+                        jnp.asarray(st.valid.numpy()), st.shape, st.nnz)
+    ops, jops = (st, v, w), (jst, jnp.asarray(v.numpy()),
+                             jnp.asarray(w.numpy()))
+    if kw.get("path") == "rowsharded":
+        with pytest.raises(ValueError, match="not legal"):
+            planner.plan_contraction("ijk,jr,kr->ir", ops, **kw)
+        with pytest.raises(ValueError, match="not legal"):
+            jplanner.plan_contraction("ijk,jr,kr->ir", jops, **kw)
+        return
+    dist = (pir.DistInfo(1, 1, True) if kw.get("rowsharded")
+            else pir.DistInfo(2, 2, False))
+    if kw.get("ctx"):
+        kw = dict(ctx=_Sharded())
+    plan = planner.plan_contraction("ijk,jr,kr->ir", ops, **kw)
+    assert plan.ir.dist == dist
+    jdist = jir.DistInfo(dist.data_size, dist.model_size, dist.rowsharded)
+    _check_costs(plan.ir, jir.build_ir("ijk,jr,kr->ir", jops, dist=jdist))
+    assert plan.path == ("rowsharded" if dist.rowsharded else "all_at_once")
 
 
 def test_classic_all_at_once_runs_the_bucketed_kernel(monkeypatch):

@@ -140,11 +140,34 @@ def test_from_stream_patterns_match_reference(num_shards):
             assert g.dtype == w.dtype and np.array_equal(g, w), (mode, name)
 
 
-def test_from_stream_refuses_a_mesh():
-    with pytest.raises(ValueError, match="one device"):
+def test_from_stream_shards_over_a_mesh():
+    """``mesh=`` (refused before distribution was ported): each rank of a
+    2-way data axis keeps its contiguous block of the streamed shard
+    layout, the blocks joined equal the single-device ingest bit for bit,
+    and each rank's bucket patterns cover its own nonzeros. A shard count
+    the data axis does not divide raises, as in the reference."""
+    from repro_torch.core.distributed import DistLayout
+    whole = pipeline.CompletionDataset.from_stream(
+        streaming.function_stream(0, SHAPE, 3000, 700), SHAPE, num_shards=4,
+        device="cpu")
+    blocks = []
+    for rank in range(2):
+        lay = DistLayout((2,), ("data",), None, ("data",), rank=rank)
+        ds = pipeline.CompletionDataset.from_stream(
+            streaming.function_stream(0, SHAPE, 3000, 700), SHAPE,
+            num_shards=4, mesh=lay, device="cpu")
+        assert ds.num_shards == 4 and ds.global_nnz == whole.global_nnz
+        bk = ds.tensor.row_buckets(0, 8)
+        assert int(bk.valid.sum()) == int(ds.tensor.valid.sum())
+        blocks.append(ds.tensor)
+    for name in ("indices", "values", "valid"):
+        assert torch.equal(torch.cat([getattr(b, name) for b in blocks]),
+                           getattr(whole.tensor, name)), name
+    with pytest.raises(ValueError, match="multiple"):
         pipeline.CompletionDataset.from_stream(
             streaming.function_stream(0, SHAPE, 100, 100), SHAPE,
-            mesh=object(), device="cpu")
+            num_shards=3, device="cpu",
+            mesh=DistLayout((2,), ("data",), None, ("data",), rank=0))
 
 
 def test_streamed_counts_are_upper_bounds():
