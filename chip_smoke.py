@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-twelve phases and stops with a non-zero exit at the first failure (9a-9d
-and 10 run right after phase 6, on phase 3's tensor before it is freed,
-9e after phase 8, on 7e's factors, 11 after 9e):
+thirteen phases and stops with a non-zero exit at the first failure (4b
+right after 4, 9a-9d and 10 right after phase 6, on phase 3's tensor
+before it is freed, 9e after phase 8, on 7e's factors, 11 after 9e, 12
+after 11):
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each instantiation's registers and spills (every
    kernel is instantiated per tile depth, 1, 2 and 4 slots or nonzeros
-   per thread); every other phase but 10 launches the default tile, 256
-   threads x 2;
+   per thread, and per element type, float32 and bfloat16, the bf16
+   instantiations from sources of their own, ``csrc/*_bf16.cu``); fail
+   unless both element types of all three kernels are in the build log;
+   every other phase but 10 launches the default tile, 256 threads x 2;
 2. hold each kernel against its plain PyTorch version on the card: R = 1,
    3, 10, 64 and 160 (all but 64 padded to a 16-byte row stride; 160 is
    wider than one launch of the bucketed body, so the MTTKRP runs in column
@@ -26,7 +29,12 @@ and 10 run right after phase 6, on phase 3's tensor before it is freed,
    not zero (it must give exact zeros there), over a ragged tail and over a
    bucket view; the run fails unless every one of these layouts occurred;
    rtol = atol = 1e-4 (shared-memory atomics change the order of the bucket
-   sums from run to run);
+   sums from run to run); then every layout again in bf16 (values, factors
+   and x rounded to bf16): each kernel's bf16 instantiation, whose output
+   must be bf16, held against its plain version on float32 copies of the
+   same bf16 inputs, compared in float32 at the reference's bf16 bound,
+   rtol = atol = 6e-2; the per-dtype launch counts must show every bf16
+   instantiation launched and no float32 one (no wrapper upcasts);
 3. run implicit-CG ALS through ``repro_torch.launch.complete``: the function
    tensor at dims 20000^3 with 80 M nonzeros (density 1e-5, paper Fig. 7a),
    rank 10, 20 CG iterations, block_rows 8, two sweeps on the fused matvec,
@@ -48,6 +56,15 @@ and 10 run right after phase 6, on phase 3's tensor before it is freed,
    the L2 sector bytes of its factor-row gathers, computed from the shapes,
    and the rate that implies. TTTP is timed twice: as the RMSE calls it
    (COO) and as the ``tttp_mttkrp`` matvec calls it (Ω's bucket view);
+   4b. the same four calls on bf16 copies of the main path's tensors (the
+   main path itself stays float32: the reference CLI has no dtype flag),
+   each once through the ``kernels.ops`` wrapper with the counts zeroed
+   before and read after (the bf16 path; its per-dtype counts must show
+   the bf16 instantiations and no float32 one), held against the plain
+   versions on float32 copies of the same inputs at 6e-2, then timed
+   beside the plain version on the bf16 inputs, the library call in bf16
+   and the bound of ``kernel_terms`` with 2-byte elements, and the L2
+   sector bytes of the 32-byte bf16 rows;
 5. profile one fused sweep and one ``tttp_mttkrp`` sweep with
    torch.profiler: device time by kernel, the device's idle share of the
    sweep, and the costliest device kernels with their launch counts (the
@@ -200,20 +217,30 @@ and 10 run right after phase 6, on phase 3's tensor before it is freed,
       of five LOCAL runs under other summation orders (bucket granularity
       4, 8, 16, the fused and the TTTP + MTTKRP matvec): float32 GGN is
       order-sensitive (two LOCAL runs of the same flags differ by 6e-4
-      after two iterations, the atomics' order), and the kernels take
-      float32 only; every rank must launch TTTP, and all but the CCD++
+      after two iterations, the atomics' order), and the solvers run in
+      float32; every rank must launch TTTP, and all but the CCD++
       pair the MTTKRP;
    c. at 2 and 4 gloo ranks: the row-sharded TTTP and MTTKRP at 80 M,
       h_slices 1 and 2, against the LOCAL kernels' output (h launches of
       each per rank), the butterfly sparse all-reduce against the union
       of the blocks, ``compressed_psum`` within 0.1 of the exact sum, and
       ``transpose_distributed`` equal to the local transpose, at 2 M;
-12. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, and in every run of phases 3, 6, 7, 8, 9, 10 and
-   11 under ``path_launches``, a mesh run's summed over its ranks, and,
-   at the layouts phase 10 timed, every lattice tile's numbers under
-   ``tiles``), the card's name and power limit, and, last, ``{"ok":
-   true, "device": {...}}``.
+12. the static gates on the card, each a subprocess that must exit 0:
+   ``python -m repro_torch.analysis --all --strict-suppressions --device
+   cuda`` (the lint, the planner contract sweep running every candidate
+   path's kernels on the card, cache-key aliasing, dead code) and
+   ``python -m repro_torch.analysis.spmd --all --device cuda`` (the
+   collective-matching lint, and every lattice tile in both element types
+   against the card's shared-memory and register budgets, registers from
+   this build's log); then ``--footprint --paper-scale`` (the paper's
+   extents), whose findings are logged, not gated;
+13. print the kernel table as one JSON line (each row with its launches in
+   the main path's run, the bf16 rows in phase 4b's bf16 path, and in
+   every run of phases 3, 4b, 6, 7, 8, 9, 10 and 11 under
+   ``path_launches``, a mesh run's summed over its ranks, and, at the
+   layouts phase 10 timed, every lattice tile's numbers under ``tiles``),
+   the card's name and power limit, and, last, ``{"ok": true, "device":
+   {...}}``.
 """
 import dataclasses
 import json
@@ -239,6 +266,8 @@ SWEEPS = 2
 SEED = 0
 
 CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
+# bf16 inputs: the reference's documented bound (tests/test_golden.py)
+BF16_TOL = dict(rtol=6e-2, atol=6e-2)
 # phase 4 at the main path's shapes: rtol, and atol as a share of max |plain|
 MAIN_RTOL = 1e-4
 MAIN_ATOL_OF_MAX = 1e-5
@@ -306,11 +335,22 @@ def phase_build():
     usage = _build.resource_usage()
     if not usage:
         raise SystemExit("phase 1: no -Xptxas -v report beside the library")
-    for (name, args), u in sorted(usage.items()):
+    for (name, args), u in sorted(usage.items(), key=str):
         log(f"  {name}<{', '.join(map(str, args))}>: {u['registers']} "
             f"registers, {u['smem']} B static shared, {u['stack']} B stack, "
             f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} "
             f"B")
+    # (kernel, fused or None, element type) of every instantiation built
+    built = {(name, args[1] if name == "bucket_rows_kernel" else None,
+              args[-1]) for name, args in usage}
+    missing = [k for k in ((n, f, dt) for n, f in (("tttp_kernel", None),
+                                                   ("bucket_rows_kernel", 0),
+                                                   ("bucket_rows_kernel", 1))
+                           for dt in ("float32", "bfloat16"))
+               if k not in built]
+    if missing:
+        raise SystemExit(f"phase 1: instantiations missing from the build "
+                         f"log: {missing}")
 
 
 # ---------------------------------------------------------------------------
@@ -467,6 +507,99 @@ def phase_check(torch, dev):
         f"(R = {', '.join(map(str, CHECK_RANKS))}; layouts: "
         f"{', '.join(covered)}); max |kernel - plain|: "
         + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+    check_bf16(torch, dev)
+
+
+def held_bf16(torch, name, got, want, where):
+    """Hold a bf16 kernel result against its plain version run in float32
+    on the same bf16 inputs: bf16 out, finite, within the reference's bf16
+    bound (rtol = atol = 6e-2) compared in float32. Returns max |err|."""
+    if got.dtype != torch.bfloat16:
+        raise SystemExit(f"{where}: {name} returned {got.dtype}, not bf16")
+    got = got.float()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"{where}: {name} gave shape {tuple(got.shape)} "
+                         f"(plain {tuple(want.shape)}) or non-finite values")
+    torch.testing.assert_close(got, want, msg=lambda m: f"{where}: {name}: "
+                               f"{m}", **BF16_TOL)
+    return float((got - want).abs().max())
+
+
+def check_bf16(torch, dev):
+    """Phase 2's layouts in bf16: every kernel's bf16 instantiation against
+    its plain version on float32 copies of the same bf16 inputs."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.sparse.ccsr import bucket_pattern
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    bf16 = torch.bfloat16
+    worst = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0}
+    n_cases = 0
+    kops.reset_launch_counts()
+    for shape, nnz, sort_mode in CHECK_PROBLEMS:
+        for r in CHECK_RANKS:
+            st, factors = _check_problem(torch, gen, shape, nnz, r, dev,
+                                         sort_mode)
+            where = f"phase 2 bf16, shape={shape} R={r}"
+            s16 = st.astype(bf16)
+            f16 = [f.to(bf16) for f in factors]
+            f32 = [f.float() for f in f16]
+            for fs16, fs32 in ((f16, f32), ([None] + f16[1:],
+                                            [None] + f32[1:])):
+                e = held_bf16(torch, "tttp", kops.tttp_values(s16, fs16),
+                              kref.tttp_ref(s16.values.float(), st.indices,
+                                            st.valid, fs32), where)
+                worst["tttp"] = max(worst["tttp"], e)
+                n_cases += 1
+            om16 = s16.with_values(torch.ones_like(s16.values))
+            for block_rows in (8, 16):
+                for mode in (0, len(shape) - 1):
+                    pat = bucket_pattern(s16, mode, block_rows)
+                    bk, bo = pat.gather(s16), pat.gather(om16)
+                    w = f"{where} block_rows={block_rows} mode={mode}"
+                    part = [None if d == mode else f
+                            for d, f in enumerate(f16)]
+                    e = held_bf16(torch, "mttkrp",
+                                  kops.mttkrp_bucketed(bk, part),
+                                  kref.mttkrp_bucketed_ref(
+                                      bk.values.float(), bk.indices,
+                                      bk.local_row,
+                                      [None if f is None else f.float()
+                                       for f in part], mode,
+                                      block_rows)[:shape[mode]], w)
+                    worst["mttkrp"] = max(worst["mttkrp"], e)
+                    x = (0.5 * torch.randn(shape[mode], r, generator=gen,
+                                           device=dev)).to(bf16)
+                    e = held_bf16(torch, "cg_matvec",
+                                  kops.cg_matvec_bucketed(bo, f16, x),
+                                  kref.cg_matvec_bucketed_ref(
+                                      bo.values.float(), bo.indices,
+                                      bo.local_row, f32, x.float(), mode,
+                                      block_rows)[:shape[mode]], w)
+                    worst["cg_matvec"] = max(worst["cg_matvec"], e)
+                    fx, fx32 = list(f16), list(f32)
+                    fx[mode], fx32[mode] = x, x.float()
+                    nb, c, nd = bo.indices.shape
+                    e = held_bf16(torch, "tttp bucket view",
+                                  kops.tttp_bucket_values(bo, fx),
+                                  kref.tttp_ref(
+                                      bo.values.float().reshape(-1),
+                                      bo.indices.reshape(-1, nd),
+                                      bo.valid.reshape(-1), fx32
+                                  ).view(nb, c), w)
+                    worst["tttp"] = max(worst["tttp"], e)
+                    n_cases += 3
+    torch.cuda.synchronize()
+    by_dtype = kops.launch_counts_by_dtype()
+    if any(c["bfloat16"] == 0 or c["float32"] != 0
+           for c in by_dtype.values()):
+        raise SystemExit(f"phase 2 bf16: launches by element type "
+                         f"{by_dtype}: every kernel must launch its bf16 "
+                         f"instantiation and none its float32 one")
+    log(f"phase 2: {n_cases} bf16 kernel-vs-plain checks passed at "
+        f"rtol=atol={BF16_TOL['rtol']} (plain in float32 on the same bf16 "
+        f"inputs); launches by element type {by_dtype}; max |kernel - "
+        f"plain|: " + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -721,6 +854,135 @@ def phase_timing(torch, run, launches, other_launches):
     log(f"phase 4: each kernel held against its plain version at rtol "
         f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|")
     return rows_out
+
+
+def phase_timing_bf16(torch, run):
+    """Phase 4b: the four calls of phase 4 on bf16 copies of the main path's
+    tensors. Returns the bf16 rows and the bf16 path's launch counts."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.roofline import gather_sector_bytes
+    bf16 = torch.bfloat16
+    st, omega = run.dataset.tensor, run.dataset.omega
+    mode = 0
+    rows = st.shape[mode]
+    m, nd = st.indices.shape
+    fs = [f.to(bf16) for f in run.factors]
+    fs32 = [f.float() for f in fs]
+    ones = st.astype(bf16).with_values(
+        torch.ones(m, dtype=bf16, device=st.values.device))
+    bo = omega.astype(bf16).row_buckets(mode, BLOCK_ROWS)
+    s16 = st.astype(bf16)
+    bk = s16.row_buckets(mode, BLOCK_ROWS)
+    others = list(fs)
+    others[mode] = None
+    others32 = [None if f is None else f.float() for f in others]
+    x = fs[mode]
+    nb, c, _ = bo.indices.shape
+    calls = {
+        "tttp_bf16": lambda: kops.tttp_values(ones, fs),
+        "tttp_bucket_view_bf16": lambda: kops.tttp_bucket_values(bo, fs),
+        "mttkrp_bucketed_bf16": lambda: kops.mttkrp_bucketed(bk, others),
+        "cg_matvec_bucketed_bf16": lambda: kops.cg_matvec_bucketed(bo, fs,
+                                                                   x)}
+    # the bf16 path: each call once, the counts zeroed before, read after
+    kops.reset_launch_counts()
+    outs = {name: fn() for name, fn in calls.items()}
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    by_dtype = kops.launch_counts_by_dtype()
+    if any(n["float32"] or not n["bfloat16"] for n in by_dtype.values()):
+        raise SystemExit(f"phase 4b: launches by element type {by_dtype}: "
+                         f"the bf16 path must launch every bf16 "
+                         f"instantiation and no float32 one")
+    log(f"phase 4b: bf16 path launches {launches}, by element type "
+        f"{by_dtype}")
+
+    def plain(name, dtype):
+        """The plain version of ``name`` on the bf16 inputs, run in
+        ``dtype`` (float32 to hold the kernel, bf16 to time it)."""
+        f = [g.to(dtype) for g in fs]
+        if name == "tttp_bf16":
+            return kref.tttp_ref(ones.values.to(dtype), ones.indices,
+                                 ones.valid, f)
+        if name == "tttp_bucket_view_bf16":
+            return kref.tttp_ref(bo.values.to(dtype).reshape(-1),
+                                 bo.indices.reshape(-1, nd),
+                                 bo.valid.reshape(-1), f).view(nb, c)
+        if name == "mttkrp_bucketed_bf16":
+            part = [None if d == mode else g for d, g in enumerate(f)]
+            return kref.mttkrp_bucketed_ref(bk.values.to(dtype), bk.indices,
+                                            bk.local_row, part, mode,
+                                            BLOCK_ROWS)[:rows]
+        return kref.cg_matvec_bucketed_ref(bo.values.to(dtype), bo.indices,
+                                           bo.local_row, f, x.to(dtype),
+                                           mode, BLOCK_ROWS)[:rows]
+
+    errs = {}
+    for name, out in outs.items():
+        errs[name] = held_bf16(torch, name, out, plain(name, torch.float32),
+                               "phase 4b")
+    del outs
+    cols = [st.indices[:, d].long() for d in range(nd)]
+    mvals = s16.masked_values()
+
+    def library_mttkrp():
+        prod = mvals[:, None]
+        for d, f in enumerate(others):
+            if f is not None:
+                prod = prod * f[cols[d]]
+        return torch.zeros(rows, RANK, dtype=bf16, device=prod.device
+                           ).index_add_(0, cols[mode], prod)
+
+    n_coo = int(ones.valid.sum())
+    n_bo, n_bk = int(bo.valid.sum()), int(bk.valid.sum())
+    other_rows = [f.shape[0] for f in others if f is not None]
+    sources = {"tttp_bf16": ("tttp", "src/repro/kernels/tttp.py:61"),
+               "tttp_bucket_view_bf16": ("tttp",
+                                         "src/repro/kernels/tttp.py:61"),
+               "mttkrp_bucketed_bf16": ("mttkrp",
+                                        "src/repro/kernels/mttkrp.py:83"),
+               "cg_matvec_bucketed_bf16": (
+                   "cg_matvec", "src/repro/kernels/cg_matvec.py:66")}
+    shapes = {
+        "tttp_bf16": dict(slots=m, valid=n_coo, factor_rows=DIMS),
+        "tttp_bucket_view_bf16": dict(slots=nb * c, valid=n_bo,
+                                      factor_rows=DIMS),
+        "mttkrp_bucketed_bf16": dict(
+            slots=bk.num_blocks * bk.capacity, valid=n_bk,
+            factor_rows=other_rows, out_rows=bk.num_blocks * BLOCK_ROWS),
+        "cg_matvec_bucketed_bf16": dict(
+            slots=nb * c, valid=n_bo, factor_rows=other_rows,
+            out_rows=nb * BLOCK_ROWS, x_rows=x.shape[0])}
+    rows_out = []
+    for name, fn in calls.items():
+        family, replaces = sources[name]
+        b_ms, b_by = terms_bound(family, nd=nd, rank=RANK, elem_bytes=2,
+                                 **shapes[name])
+        rows_out.append(dict(
+            name=name, route="cuda",
+            source=f"port/repro_torch/csrc/{family}_bf16.cu",
+            replaces=replaces, launches=launches[family],
+            max_abs_err=errs[name], ms=time_ms(torch, fn, 20),
+            plain_ms=time_ms(torch, lambda n=name: plain(n, bf16), 3),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=(time_ms(torch, library_mttkrp, 3)
+                        if name == "mttkrp_bucketed_bf16" else None),
+            shape=f"{shapes[name]['slots']} slots, "
+                  f"{shapes[name]['valid']} valid, R={RANK}, bf16"))
+    for row in rows_out:
+        n_gathers = (shapes[row["name"]]["valid"]
+                     * len(shapes[row["name"]]["factor_rows"]))
+        g = gather_sector_bytes(n_gathers, RANK, 2)
+        log(f"phase 4b: {row['name']:<24} {row['ms']:9.3f} ms  plain "
+            f"{row['plain_ms']:9.3f} ms  bound {row['bound_ms']:.3f} ms "
+            f"({row['bound_by']})  library {row['library_ms']}  "
+            f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]; "
+            f"factor-row gathers {g / 1e9:.2f} GB of L2 sectors, "
+            f"{g / row['ms'] / 1e9:.2f} TB/s")
+    log(f"phase 4b: each bf16 kernel held against its plain version in "
+        f"float32 at rtol=atol={BF16_TOL['rtol']}")
+    return rows_out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -2156,7 +2418,7 @@ def check_footprint(torch, lay):
             dyn = est.smem_bytes - est.static_smem
             card = _build.kernel_attributes(launched, variant,
                                             tile.per_thread, tile.threads,
-                                            dyn)
+                                            dyn, geom.dtype)
             if est.registers_from != "build log" or \
                     est.registers != card["registers"] or \
                     est.static_smem != card["static_smem"] or \
@@ -2419,8 +2681,8 @@ DIST_CASES = (("als", "2,2", RANK), ("ccd", "2,2", RANK),
               ("ggn", "2,2", RANK), ("sgd", "1,4", 12))
 DIST_SWEEPS = 2
 DIST_TOL = 1e-4
-# float32 GGN is order-sensitive (ROADMAP.md Queue C) and the kernels take
-# float32 only: two LOCAL runs of the same flags differ by 6e-4 after the
+# float32 GGN is order-sensitive (ROADMAP.md Queue C) and the solvers run
+# in float32: two LOCAL runs of the same flags differ by 6e-4 after the
 # second iteration here (the atomics' order), and by 2e-3 across bucket
 # granularities and matvec routes (PR 19's chip runs). So the mesh's
 # objective is held, per iteration, within this of the envelope of LOCAL
@@ -2773,6 +3035,42 @@ def phase_dist(torch, ref):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 12
+# ---------------------------------------------------------------------------
+
+GATES = (["-m", "repro_torch.analysis", "--all", "--strict-suppressions",
+          "--device", "cuda"],
+         ["-m", "repro_torch.analysis.spmd", "--all", "--device", "cuda"])
+# recorded, not gated: the footprint at the paper's extents
+PAPER_SCALE = ["-m", "repro_torch.analysis.spmd", "--footprint",
+               "--paper-scale", "--device", "cuda"]
+
+
+def phase_gates():
+    """Phase 12: the static gates on the card, each a subprocess that must
+    exit 0, then the paper-scale footprint, whose findings are logged
+    whatever they are (exit 0 or 1; anything else fails)."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "port")
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for argv in GATES + (PAPER_SCALE,):
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, *argv], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=600)
+        lines = (out.stdout + out.stderr).strip().splitlines()
+        for line in lines:
+            if line.startswith(("[", "FAILED", "footprint:")) \
+                    or line == "OK":
+                log(f"  {line}")
+        gated = argv is not PAPER_SCALE
+        if out.returncode != 0 and (gated or out.returncode != 1):
+            raise SystemExit(f"phase 12: {' '.join(argv)} exited "
+                             f"{out.returncode}:\n" + "\n".join(lines[-40:]))
+        log(f"phase 12: python {' '.join(argv)}: exit {out.returncode} in "
+            f"{time.perf_counter() - t0:.1f} s"
+            + ("" if gated else " (recorded, not gated)"))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2789,6 +3087,9 @@ def main():
     phase_check(torch, dev)
     run, launches, other_launches = phase_main_path(torch)
     kernels = phase_timing(torch, run, launches, other_launches)
+    bf16_rows, bf16_launches = phase_timing_bf16(torch, run)
+    kernels += bf16_rows
+    torch.cuda.empty_cache()
     for path in ("fused", "tttp_mttkrp"):
         phase_profile(torch, run, path)
     solver_counts, solver_rows = phase_solvers(torch, run)
@@ -2814,11 +3115,12 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     dist_counts = phase_dist(torch, main_ref)
-    # each kernel's launches in every run of phases 3, 6, 7, 8, 9, 10 and
-    # 11 (summed over a mesh run's ranks), each counted from zero, and
+    phase_gates()
+    # each kernel's launches in every run of phases 3, 4b, 6, 7, 8, 9, 10
+    # and 11 (summed over a mesh run's ranks), each counted from zero, and
     # phase 10's lattice timings at the row's layout
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
-             **solver_counts, **stream_counts, **serve_counts,
+             "bf16 path (4b)": bf16_launches, **solver_counts, **stream_counts, **serve_counts,
              **planner_counts, **tile_counts, **dist_counts}
     for row in kernels:
         group = next(g for g in ("tttp", "mttkrp", "cg_matvec")

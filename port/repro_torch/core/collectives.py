@@ -94,6 +94,8 @@ def all_reduce_ints(values: Sequence[int], group=None,
     dev = (torch.device("cuda", torch.cuda.current_device())
            if dist.get_backend(group) == "nccl" else torch.device("cpu"))
     t = torch.tensor(list(values), dtype=torch.int64, device=dev)
+    # host ints by contract (a restart's agreed step), never in a sweep
+    # repro-lint: disable=JS002 -- the result is host ints by contract
     return [int(v) for v in all_reduce(t, group, op).tolist()]
 
 

@@ -273,6 +273,7 @@ class DistLayout:
                        groups=(groups[0], groups[1] if model else None))
 
     def barrier(self) -> None:
+        # repro-lint: disable=SP103 -- the layout's grid is the whole world
         coll.barrier(None)
 
     # -- this rank's slices ------------------------------------------------
@@ -424,6 +425,9 @@ def sparse_allreduce_butterfly(st: SparseTensor, group=None) -> SparseTensor:
                          cur.shape),
             SparseTensor(r_idx, r_vals, r_valid.bool(), cur.shape))
         # the union sorts valid entries first: the owned ones lead
+        # the overflow check the port adds where the reference truncates: one
+        # sync per butterfly step, never in a sweep or a capture
+        # repro-lint: disable=JS001,JS002 -- the butterfly's overflow check
         if bool(cur.valid[st.cap:].any()):
             raise ValueError(
                 f"butterfly step {s}: the owned range [{keep_lo}, {keep_hi}) "

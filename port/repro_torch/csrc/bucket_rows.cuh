@@ -7,23 +7,31 @@
 //   z[n]    = v[n] * sum_s KR[n,s] * x[idx[n,mode], s]    (fused matvec)
 //   Y[i, :] = sum_{n: idx[n,mode] = i} z[n] * KR[n, :]
 //
-// Layout the launcher takes: the factors and x as rows of RS floats, RS a
-// multiple of 4 (16 bytes) holding R columns and RS - R zero columns, at
-// 16-byte-aligned addresses; the output as (nb * block_rows, R) rows. The
-// zero columns add exact zeros, so Y equals the unpadded function's.
+// Element types: T is float or __nv_bfloat16 (common.cuh), instantiated by
+// mttkrp.cu / cg_matvec.cu (float) and mttkrp_bf16.cu / cg_matvec_bf16.cu
+// (bf16). Values, factor rows and x are read as T and converted to float in
+// registers; KR, z, the dot product and every sum are float, the shared
+// accumulator is float (scatter_rows.cuh), and the output is written as T.
+//
+// Layout the launcher takes: the factors and x as rows of RS elements of T,
+// RS a multiple of Elem<T>::VEC (16 bytes) holding R columns and RS - R zero
+// columns, at 16-byte-aligned addresses; the output as (nb * block_rows, R)
+// rows of T. The zero columns add exact zeros, so Y equals the unpadded
+// function's.
 //
 // One CTA per bucket. It owns the bucket's block_rows output rows in shared
 // memory (scatter_rows.cuh), so no global atomics; FUSED also holds the
-// bucket's block_rows rows of x there, loaded once before the capacity loop
-// (a slot's x row is its key's row). The CTA walks the capacity axis
-// SLOTS * blockDim.x slots per step, SLOTS slots per thread at a stride of
-// blockDim.x, so every slot stream is read coalesced and each thread has
-// SLOTS slots' gathers in flight at once. SLOTS and blockDim.x are the
-// launch's tile (KernelTile.per_thread and .threads, kernels/tile.py), SLOTS
-// a template depth instantiated for 1, 2 and 4. A slot's factor rows are
-// gathered as float4s with the R loop unrolled at compile time (RS / 4
-// loads per row); padding slots carry index 0, so their gathers stay in
-// bounds and their key adds them nowhere. Offsets are 64-bit.
+// bucket's block_rows rows of x there as floats, loaded once before the
+// capacity loop (a slot's x row is its key's row). The CTA walks the
+// capacity axis SLOTS * blockDim.x slots per step, SLOTS slots per thread at
+// a stride of blockDim.x, so every slot stream is read coalesced and each
+// thread has SLOTS slots' gathers in flight at once. SLOTS and blockDim.x
+// are the launch's tile (KernelTile.per_thread and .threads,
+// kernels/tile.py), SLOTS a template depth instantiated for 1, 2 and 4. A
+// slot's factor rows are gathered as 16-byte vectors with the R loop
+// unrolled at compile time (RS / VEC loads per row, each one float4 of
+// floats or two of bf16); padding slots carry index 0, so their gathers stay
+// in bounds and their key adds them nowhere. Offsets are 64-bit.
 #pragma once
 
 #include "scatter_rows.cuh"
@@ -33,14 +41,15 @@ namespace {
 // The explicit minimum of 1 CTA per SM is not the default: nvcc compiles
 // the body differently without it, and the MTTKRP then ran 3-5 % slower
 // at the main path's shapes on the H100 (PERF.md).
-template <int RMAX, bool FUSED, int SLOTS>
+template <int RMAX, bool FUSED, int SLOTS, typename T>
 __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
-    const float* __restrict__ values, const int* __restrict__ indices,
+    const T* __restrict__ values, const int* __restrict__ indices,
     const int* __restrict__ local_row, const unsigned char* __restrict__ valid,
-    long long C, int nd, int mode, FactorTable f,
-    const float* __restrict__ x, long long x_rows, int R, int RS,
-    int block_rows, float* __restrict__ out) {
+    long long C, int nd, int mode, FactorTable<T> f,
+    const T* __restrict__ x, long long x_rows, int R, int RS,
+    int block_rows, T* __restrict__ out) {
   constexpr int QMAX = RMAX / 4;
+  constexpr int VQ = Elem<T>::VEC / 4;  // float4s of one vector load
   extern __shared__ float4 smem[];
   float* ys = reinterpret_cast<float*>(smem);  // (block_rows, RS) sums
   float* xs = ys + block_rows * RS;            // (block_rows, RS) x rows
@@ -51,7 +60,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
     ys[i] = 0.f;
     if (FUSED) {
       const long long row = b * block_rows + i / RS;
-      xs[i] = row < x_rows ? x[row * RS + i % RS] : 0.f;
+      xs[i] = row < x_rows ? to_float(x[row * RS + i % RS]) : 0.f;
     }
   }
   __syncthreads();
@@ -71,7 +80,7 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
       const int lr = in ? local_row[slot] : 0;
       const bool ok = in && valid[slot];
       key[s] = ok ? lr : block_rows;
-      w[s] = in ? values[slot] : 0.f;
+      w[s] = in ? to_float(values[slot]) : 0.f;
 #pragma unroll
       for (int d = 0; d < MAX_ND; ++d) {
         ix[s][d] = in && d < nd ? indices[slot * nd + d] : 0;
@@ -89,11 +98,15 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
       if (d < nd && d != mode && f.p[d] != nullptr) {
 #pragma unroll
         for (int s = 0; s < SLOTS; ++s) {
-          const float4* a = reinterpret_cast<const float4*>(
-              f.p[d] + static_cast<long long>(ix[s][d]) * RS);
+          const T* a = f.p[d] + static_cast<long long>(ix[s][d]) * RS;
 #pragma unroll
-          for (int q = 0; q < QMAX; ++q) {
-            if (q < nq) kr[s][q] = kr[s][q] * __ldg(a + q);
+          for (int q = 0; q < QMAX; q += VQ) {
+            if (q < nq) {
+              float4 v[VQ];
+              load_vec(a + 4 * q, v);
+#pragma unroll
+              for (int k = 0; k < VQ; ++k) kr[s][q + k] = kr[s][q + k] * v[k];
+            }
           }
         }
       }
@@ -127,44 +140,46 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
   }
   sum.finish(block_rows, ys, RS, nq);
   __syncthreads();
-  float* dst = out + b * block_rows * R;
+  T* dst = out + b * block_rows * R;
   for (int i = threadIdx.x; i < block_rows * R; i += blockDim.x) {
-    dst[i] = ys[(i / R) * RS + i % R];
+    store_elem(dst + i, ys[(i / R) * RS + i % R]);
   }
 }
 
 
-template <int RMAX, bool FUSED, int SLOTS>
+template <int RMAX, bool FUSED, int SLOTS, typename T>
 cudaError_t launch_tile(const void* values, const void* indices,
                         const void* local_row, const void* valid,
                         long long nb, long long C, int nd, int mode,
-                        const FactorTable& f, const void* x, long long x_rows,
+                        const FactorTable<T>& f, const void* x,
+                        long long x_rows,
                         int R, int RS, int block_rows, void* out, int threads,
                         cudaStream_t stream) {
   const size_t smem = sizeof(float) * block_rows * RS * (FUSED ? 2 : 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        bucket_rows_kernel<RMAX, FUSED, SLOTS>,
+        bucket_rows_kernel<RMAX, FUSED, SLOTS, T>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  bucket_rows_kernel<RMAX, FUSED, SLOTS>
+  bucket_rows_kernel<RMAX, FUSED, SLOTS, T>
       <<<static_cast<unsigned>(nb), threads, smem, stream>>>(
-          static_cast<const float*>(values), static_cast<const int*>(indices),
+          static_cast<const T*>(values), static_cast<const int*>(indices),
           static_cast<const int*>(local_row),
           static_cast<const unsigned char*>(valid), C, nd, mode, f,
-          static_cast<const float*>(x), x_rows, R, RS, block_rows,
-          static_cast<float*>(out));
+          static_cast<const T*>(x), x_rows, R, RS, block_rows,
+          static_cast<T*>(out));
   return cudaGetLastError();
 }
 
 // The instantiation for the tile's per-thread depth (1, 2 or 4, checked by
 // the caller).
-template <int RMAX, bool FUSED>
+template <int RMAX, bool FUSED, typename T>
 cudaError_t launch_rmax(const void* values, const void* indices,
                         const void* local_row, const void* valid,
                         long long nb, long long C, int nd, int mode,
-                        const FactorTable& f, const void* x, long long x_rows,
+                        const FactorTable<T>& f, const void* x,
+                        long long x_rows,
                         int R, int RS, int block_rows, void* out, int threads,
                         int per_thread, cudaStream_t stream) {
   switch (per_thread) {
@@ -185,9 +200,9 @@ cudaError_t launch_rmax(const void* values, const void* indices,
 
 // Checks the arguments, then launches bucket_rows_kernel compiled for the
 // least RMAX of 16, 32, 64 and 128 that holds RS and for the tile's
-// per-thread depth. `x` is read only when FUSED. Returns
+// per-thread depth, on operands of T. `x` is read only when FUSED. Returns
 // cudaErrorInvalidValue for what the kernel does not take.
-template <bool FUSED>
+template <bool FUSED, typename T>
 cudaError_t launch_bucket_rows(const void* values, const void* indices,
                                const void* local_row, const void* valid,
                                long long nb, long long C, int nd, int mode,
@@ -196,13 +211,13 @@ cudaError_t launch_bucket_rows(const void* values, const void* indices,
                                int block_rows, void* out, int threads,
                                int per_thread, void* stream) {
   if (nd < 1 || nd > MAX_ND || mode < 0 || mode >= nd || R < 1 || RS < R ||
-      RS % 4 != 0 || RS > 128 || block_rows < 1 || threads < 32 ||
+      RS % Elem<T>::VEC != 0 || RS > 128 || block_rows < 1 || threads < 32 ||
       threads > MAX_THREADS || threads % 32 != 0 ||
       !valid_depth(per_thread) || nb >= (1LL << 31) ||
       (FUSED && (x == nullptr || !aligned16(x)))) {
     return cudaErrorInvalidValue;
   }
-  const FactorTable f = make_factor_table(factors, nd);
+  const FactorTable<T> f = make_factor_table<T>(factors, nd);
   for (int d = 0; d < nd; ++d) {
     if (f.p[d] != nullptr && !aligned16(f.p[d])) return cudaErrorInvalidValue;
   }
@@ -228,32 +243,35 @@ cudaError_t launch_bucket_rows(const void* values, const void* indices,
                                  threads, per_thread, s);
 }
 
-template <int RMAX, bool FUSED>
+template <int RMAX, bool FUSED, typename T>
 const void* bucket_rows_entry(int per_thread) {
   switch (per_thread) {
     case 1:
-      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 1>);
+      return reinterpret_cast<const void*>(
+          bucket_rows_kernel<RMAX, FUSED, 1, T>);
     case 2:
-      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 2>);
+      return reinterpret_cast<const void*>(
+          bucket_rows_kernel<RMAX, FUSED, 2, T>);
     case 4:
-      return reinterpret_cast<const void*>(bucket_rows_kernel<RMAX, FUSED, 4>);
+      return reinterpret_cast<const void*>(
+          bucket_rows_kernel<RMAX, FUSED, 4, T>);
     default:
       return nullptr;
   }
 }
 
 // func_attributes (common.cuh) of bucket_rows_kernel<rmax, FUSED,
-// per_thread>; an instantiation that does not exist is
+// per_thread, T>; an instantiation that does not exist is
 // cudaErrorInvalidValue.
-template <bool FUSED>
+template <bool FUSED, typename T>
 cudaError_t bucket_rows_attributes(int rmax, int per_thread, int threads,
                                    long long smem, int* out) {
   const void* fn = nullptr;
   switch (rmax) {
-    case 16: fn = bucket_rows_entry<16, FUSED>(per_thread); break;
-    case 32: fn = bucket_rows_entry<32, FUSED>(per_thread); break;
-    case 64: fn = bucket_rows_entry<64, FUSED>(per_thread); break;
-    case 128: fn = bucket_rows_entry<128, FUSED>(per_thread); break;
+    case 16: fn = bucket_rows_entry<16, FUSED, T>(per_thread); break;
+    case 32: fn = bucket_rows_entry<32, FUSED, T>(per_thread); break;
+    case 64: fn = bucket_rows_entry<64, FUSED, T>(per_thread); break;
+    case 128: fn = bucket_rows_entry<128, FUSED, T>(per_thread); break;
     default: break;
   }
   return func_attributes(fn, threads, smem, out);

@@ -5,7 +5,8 @@
 // over the CCSR row-block buckets of the Omega pattern (w = bucket values).
 //
 // Replaces src/repro/kernels/cg_matvec.py:cg_matvec_pallas (body
-// _cg_matvec_kernel).
+// _cg_matvec_kernel), on float operands here and on bf16 ones in
+// cg_matvec_bf16.cu.
 //
 // What bounds it: bytes. Each bucket slot is read once: w (4 B), nd int32
 // indices, local_row (4 B) and valid (1 B), 21 B at nd = 3, and the output
@@ -31,15 +32,15 @@ extern "C" int repro_cg_matvec_bucketed_f32(
     const void* valid, long long nb, long long C, int nd, int mode,
     void** factors, const void* x, long long x_rows, int R, int RS,
     int block_rows, void* out, int threads, int per_thread, void* stream) {
-  return launch_bucket_rows<true>(omega, indices, local_row, valid, nb, C,
-                                  nd, mode, factors, x, x_rows, R, RS,
-                                  block_rows, out, threads, per_thread,
-                                  stream);
+  return launch_bucket_rows<true, float>(
+      omega, indices, local_row, valid, nb, C, nd, mode, factors, x, x_rows,
+      R, RS, block_rows, out, threads, per_thread, stream);
 }
 
-// bucket_rows_kernel<rmax, true, per_thread>'s attributes, for
+// bucket_rows_kernel<rmax, true, per_thread, float>'s attributes, for
 // repro_kernel_attributes (attributes.cu).
-cudaError_t cg_matvec_attributes(int rmax, int per_thread, int threads,
-                                 long long smem, int* out) {
-  return bucket_rows_attributes<true>(rmax, per_thread, threads, smem, out);
+cudaError_t cg_matvec_attributes_f32(int rmax, int per_thread, int threads,
+                                    long long smem, int* out) {
+  return bucket_rows_attributes<true, float>(rmax, per_thread, threads,
+                                           smem, out);
 }

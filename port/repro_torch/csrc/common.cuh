@@ -4,8 +4,18 @@
 // value in the launch parameters: the host launchers receive a host array of
 // nd pointers (NULL for an absent factor) and copy it into a FactorTable, so
 // a launch needs no device allocation and no copy.
+//
+// Element types: every kernel is instantiated for float and __nv_bfloat16
+// inputs (the T of its template). A bf16 kernel reads bf16 values, factor
+// rows and x from device memory, converts them to float in registers with
+// the intrinsics, multiplies and accumulates in float, and writes its output
+// in bf16 (the reference's Pallas kernels: Hadamard chain, f32 accumulator,
+// result cast back to the input dtype). Rows of either type are read as
+// 16-byte vectors: 4 floats or 8 bf16 values per load (Elem<T>::VEC), so a
+// row's padded stride RS is a multiple of VEC.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 constexpr int MAX_ND = 8;             // tensor order the kernels accept
@@ -19,8 +29,21 @@ constexpr int MAX_THREADS = 256;
 // is instantiated for: kernels/tile.py PER_THREAD_DEPTHS.
 inline bool valid_depth(int d) { return d == 1 || d == 2 || d == 4; }
 
+template <typename T>
 struct FactorTable {
-  const float* p[MAX_ND];  // (I_d, R) row-major, or nullptr
+  const T* p[MAX_ND];  // (I_d, RS) row-major, or nullptr
+};
+
+// Columns of one 16-byte vector load of a row of T.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int VEC = 4;
+};
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr int VEC = 8;
 };
 
 inline bool aligned16(const void* p) {
@@ -31,12 +54,45 @@ __device__ __forceinline__ float4 operator*(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
 }
 
-inline FactorTable make_factor_table(void* const* ptrs, int nd) {
-  FactorTable t;
+template <typename T>
+inline FactorTable<T> make_factor_table(void* const* ptrs, int nd) {
+  FactorTable<T> t;
   for (int d = 0; d < MAX_ND; ++d) {
-    t.p[d] = d < nd ? static_cast<const float*>(ptrs[d]) : nullptr;
+    t.p[d] = d < nd ? static_cast<const T*>(ptrs[d]) : nullptr;
   }
   return t;
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// The two bf16 values packed in a 32-bit word, as floats (the lower half
+// holds the lower column).
+__device__ __forceinline__ float2 bf16x2_to_float2(unsigned u) {
+  return make_float2(
+      __bfloat162float(__ushort_as_bfloat16(static_cast<unsigned short>(u))),
+      __bfloat162float(
+          __ushort_as_bfloat16(static_cast<unsigned short>(u >> 16))));
+}
+
+// The 16 bytes at p (16-byte aligned, read-only for the kernel's life) as
+// float4s of 4 columns each: one for float, two for bf16.
+__device__ __forceinline__ void load_vec(const float* p, float4* v) {
+  v[0] = __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float4* v) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const float2 a = bf16x2_to_float2(u.x), b = bf16x2_to_float2(u.y);
+  const float2 c = bf16x2_to_float2(u.z), d = bf16x2_to_float2(u.w);
+  v[0] = make_float4(a.x, a.y, b.x, b.y);
+  v[1] = make_float4(c.x, c.y, d.x, d.y);
 }
 
 // What cudaFuncGetAttributes and the occupancy calculator say of the kernel

@@ -2,7 +2,8 @@
 //   Y[i, :] = sum_{n: idx[n,mode] = i} v[n] * prod_{d != mode} A_d[idx[n,d], :]
 // over CCSR row-block buckets (repro_torch/sparse/ccsr.py).
 //
-// Replaces src/repro/kernels/mttkrp.py:mttkrp_pallas (body _mttkrp_kernel).
+// Replaces src/repro/kernels/mttkrp.py:mttkrp_pallas (body _mttkrp_kernel),
+// on float operands here and on bf16 ones in mttkrp_bf16.cu.
 //
 // What bounds it: bytes. Each bucket slot is read once: its value (4 B),
 // nd int32 indices, local_row (4 B) and valid (1 B), 21 B at nd = 3, and
@@ -28,15 +29,15 @@ extern "C" int repro_mttkrp_bucketed_f32(
     const void* valid, long long nb, long long C, int nd, int mode,
     void** factors, const void* x, long long x_rows, int R, int RS,
     int block_rows, void* out, int threads, int per_thread, void* stream) {
-  return launch_bucket_rows<false>(values, indices, local_row, valid, nb, C,
-                                   nd, mode, factors, x, x_rows, R, RS,
-                                   block_rows, out, threads, per_thread,
-                                   stream);
+  return launch_bucket_rows<false, float>(
+      values, indices, local_row, valid, nb, C, nd, mode, factors, x, x_rows,
+      R, RS, block_rows, out, threads, per_thread, stream);
 }
 
-// bucket_rows_kernel<rmax, false, per_thread>'s attributes, for
+// bucket_rows_kernel<rmax, false, per_thread, float>'s attributes, for
 // repro_kernel_attributes (attributes.cu).
-cudaError_t mttkrp_attributes(int rmax, int per_thread, int threads,
-                              long long smem, int* out) {
-  return bucket_rows_attributes<false>(rmax, per_thread, threads, smem, out);
+cudaError_t mttkrp_attributes_f32(int rmax, int per_thread, int threads,
+                                 long long smem, int* out) {
+  return bucket_rows_attributes<false, float>(rmax, per_thread, threads,
+                                            smem, out);
 }

@@ -313,10 +313,12 @@ class StreamingIngest:
 
     # -- streaming phase ---------------------------------------------------
     def add(self, chunk: Chunk) -> None:
+        # repro-lint: disable=JS003 -- host numpy work; nothing on the card
         t0 = time.perf_counter()
         try:
             self._add(chunk)
         finally:
+            # repro-lint: disable=JS003 -- the same host numpy work
             self._busy_s += time.perf_counter() - t0
 
     def _add(self, chunk: Chunk) -> None:
@@ -410,6 +412,7 @@ class StreamingIngest:
         ``finalize_shard(s)`` per shard, or ``finalize_stats()`` for
         metadata alone — both keep the documented O(chunk)/O(shard)
         streaming bound."""
+        # repro-lint: disable=JS003 -- the host numpy merge; nothing on the card
         t0 = time.perf_counter()
         shards = []
         dropped_cross = 0
@@ -417,6 +420,7 @@ class StreamingIngest:
             merged = self.finalize_shard(s)
             self._runs[s] = []          # free the source runs shard-by-shard
             shards.append(merged)
+        # repro-lint: disable=JS003 -- the same host numpy merge
         self._busy_s += time.perf_counter() - t0
         self._finalized = True
         kept = sum(sh[0].shape[0] for sh in shards)

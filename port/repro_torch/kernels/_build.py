@@ -11,7 +11,12 @@ import: the first kernel launch builds.
 Every C entry point launches one kernel on the given stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0. A launch
 takes its threads per CTA and per-thread depth from a
-``kernels.tile.KernelTile``. :func:`resource_usage` reads the compiler's
+``kernels.tile.KernelTile``. Each kernel is instantiated for float32 and
+bfloat16 operands (:data:`KERNEL_DTYPES`), with one C entry point per
+element type (:func:`entry`); the bf16 instantiations have sources of
+their own (``csrc/*_bf16.cu``), so nvcc builds them in parallel with the
+float ones. :func:`operand_dtype` checks that a launch's floating operands
+share one of those types. :func:`resource_usage` reads the compiler's
 registers and spills per instantiation from the build log, and
 :func:`kernel_attributes` asks the card (``cudaFuncGetAttributes`` and the
 occupancy calculator) for the same instantiation.
@@ -29,6 +34,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
 
@@ -39,25 +46,46 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
+# the element types the kernels are instantiated for: the suffix of their C
+# entry points, the dtype code of repro_kernel_attributes, and the name the
+# build log's mangled template argument gives
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_MANGLED_DTYPES = {"f": "float32", "__nv_bfloat16": "bfloat16"}
+
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
+_TTTP = (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _I, _P)
 _BUCKETED = (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _P, _L, _I, _I, _I, _P,
              _I, _I, _P)
 SIGNATURES = {
     # values, indices, valid, m, nd, factors[nd], R, RS (padded row
-    # stride), out, threads, per_thread, stream
-    "repro_tttp_f32": (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _I, _P),
+    # stride, in elements), out, threads, per_thread, stream
+    **{f"repro_tttp_{sfx}": _TTTP for sfx in KERNEL_DTYPES.values()},
     # values (ω for the matvec), indices, local_row, valid, nb, C, nd, mode,
-    # factors[nd], x, x_rows, R, RS (padded row stride), block_rows, out,
-    # threads, per_thread, stream; the MTTKRP ignores x and x_rows
-    "repro_mttkrp_bucketed_f32": _BUCKETED,
-    "repro_cg_matvec_bucketed_f32": _BUCKETED,
+    # factors[nd], x, x_rows, R, RS (padded row stride, in elements),
+    # block_rows, out, threads, per_thread, stream; the MTTKRP ignores x
+    # and x_rows
+    **{f"repro_{k}_bucketed_{sfx}": _BUCKETED
+       for k in ("mttkrp", "cg_matvec") for sfx in KERNEL_DTYPES.values()},
     # family, variant (NP or RMAX), per_thread, threads, dynamic shared
-    # bytes, out[5] (csrc/attributes.cu)
-    "repro_kernel_attributes": (_I, _I, _I, _I, _L,
+    # bytes, dtype code, out[5] (csrc/attributes.cu)
+    "repro_kernel_attributes": (_I, _I, _I, _I, _L, _I,
                                 ctypes.POINTER(ctypes.c_int)),
 }
 # the family codes of repro_kernel_attributes
 FAMILY_CODES = {"tttp": 0, "mttkrp": 1, "cg_matvec": 2}
+
+
+def dtype_name(dtype: torch.dtype) -> str:
+    """``"float32"`` for ``torch.float32``: the key of the kernel modules'
+    ``launches_by_dtype``."""
+    return str(dtype).removeprefix("torch.")
+
+
+def entry(name: str, dtype: torch.dtype) -> str:
+    """The C launcher of kernel ``name`` (``tttp``, ``mttkrp_bucketed``,
+    ``cg_matvec_bucketed``) for operands of ``dtype``."""
+    return f"repro_{name}_{KERNEL_DTYPES[dtype]}"
 
 _lock = threading.Lock()
 _lib = None
@@ -132,18 +160,28 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
-Instantiation = Tuple[str, Tuple[int, ...]]
+Instantiation = Tuple[str, Tuple]
 
 
 def kernel_name(mangled: str) -> Optional[Instantiation]:
-    """``("tttp_kernel", (3, 2))`` or ``("bucket_rows_kernel", (16, 1,
-    2))`` (a bool argument as 0 or 1) from a mangled entry-function name,
-    None for any other function."""
-    m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)E", mangled)
+    """``("tttp_kernel", (3, 2, "float32"))`` or ``("bucket_rows_kernel",
+    (16, 1, 2, "bfloat16"))`` (a bool argument as 0 or 1, the element type
+    last) from a mangled entry-function name, None for any other function.
+    A name with integer template arguments only gives those alone."""
+    m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)", mangled)
     if m is None:
         return None
-    return m.group(1), tuple(int(a) for a in
-                             re.findall(r"L[a-z](\d+)E", m.group(2)))
+    args = tuple(int(a) for a in re.findall(r"L[a-z](\d+)E", m.group(2)))
+    rest = mangled[m.end():]
+    # a builtin type is one letter; a class type its name's length, then
+    # the name
+    t = re.match(r"(?:([a-z])|(\d+))", rest)
+    if t is not None and t.group(1):
+        args += (_MANGLED_DTYPES.get(t.group(1), t.group(1)),)
+    elif t is not None:
+        name = rest[t.end():t.end() + int(t.group(2))]
+        args += (_MANGLED_DTYPES.get(name, name),)
+    return m.group(1), args
 
 
 def resource_usage(log: Optional[str] = None
@@ -180,21 +218,24 @@ def resource_usage(log: Optional[str] = None
 
 
 def kernel_attributes(family: str, variant: int, per_thread: int,
-                      threads: int, smem: int = 0) -> Dict[str, int]:
+                      threads: int, smem: int = 0,
+                      dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     """What the card says of one instantiation (``variant`` is TTTP's NP or
-    the bucketed body's RMAX): ``registers``, ``local_bytes`` and
-    ``static_smem`` per ``cudaFuncGetAttributes``, ``max_threads``, and
-    ``blocks_per_sm``, the CTAs of ``threads`` threads and ``smem`` bytes of
-    dynamic shared memory one SM holds. Raises if the instantiation does
-    not exist."""
+    the bucketed body's RMAX, ``dtype`` its element type): ``registers``,
+    ``local_bytes`` and ``static_smem`` per ``cudaFuncGetAttributes``,
+    ``max_threads``, and ``blocks_per_sm``, the CTAs of ``threads`` threads
+    and ``smem`` bytes of dynamic shared memory one SM holds. Raises if the
+    instantiation does not exist."""
     out = (ctypes.c_int * 5)()
     handle = lib()
     err = handle.repro_kernel_attributes(FAMILY_CODES[family], variant,
-                                         per_thread, threads, smem, out)
+                                         per_thread, threads, smem,
+                                         DTYPE_CODES.get(dtype, -1), out)
     if err != 0:
         msg = handle.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"kernel attributes of {family} <{variant}, "
-                           f"{per_thread}>: CUDA error {err} ({msg})")
+                           f"{per_thread}, {dtype}>: CUDA error {err} "
+                           f"({msg})")
     return dict(zip(("registers", "local_bytes", "static_smem",
                      "max_threads", "blocks_per_sm"), out))
 
@@ -213,6 +254,23 @@ def lib() -> ctypes.CDLL:
             handle.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = handle
     return _lib
+
+
+def operand_dtype(**operands) -> torch.dtype:
+    """The one element type of a launch's floating operands (name ->
+    tensor or None): ``TypeError`` unless they share a type the kernels are
+    instantiated for (:data:`KERNEL_DTYPES`). ``kernels.ops`` promotes mixed
+    inputs before it calls a launcher."""
+    dtypes = {n: t.dtype for n, t in operands.items() if t is not None}
+    found = set(dtypes.values())
+    if len(found) > 1:
+        raise TypeError(f"the CUDA kernel takes one element type across its "
+                        f"operands, got {dtypes}")
+    dtype = found.pop()
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"operands of dtype {dtype}; the CUDA kernels take "
+                        f"{', '.join(map(str, KERNEL_DTYPES))}")
+    return dtype
 
 
 def check_operand(name: str, t, dtype, device, shape=None) -> None:

@@ -8,11 +8,14 @@ per nonzero and used for both the TTTP half (``z[n] = ω[n]·⟨KR[n],
 x[i]⟩``, with the bucket's rows of ``x`` held in shared memory) and the
 MTTKRP half (``y[i] += z[n]·KR[n]``). The factors and ``x`` reach the
 kernel as zero-padded copies with a 16-byte row stride
-(``kernels.mttkrp.pad_rows``). It takes R up to ``kernels.mttkrp.MAX_RANK``
+(``kernels.mttkrp.pad_rows``); like the values, they are all float32 or all
+bfloat16, the kernel's two instantiations (a bf16 launch sums in float32 and
+writes bf16). It takes R up to ``kernels.mttkrp.MAX_RANK``
 and refuses a wider one: ``kernels.ops.cg_matvec_bucketed`` runs wider R as
 TTTP then MTTKRP. The launch shape is a ``kernels.tile.KernelTile``.
-``launches`` counts the kernel's launches and ``last_launch`` holds the
-(threads, per_thread) of the last one.
+``launches`` counts the kernel's launches, ``launches_by_dtype`` splits them
+by element type, and ``last_launch`` holds the (threads, per_thread) of the
+last one.
 """
 from __future__ import annotations
 
@@ -20,11 +23,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.mttkrp import check_buckets, launch_bucketed
 from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 last_launch = None
 
 
@@ -32,15 +37,16 @@ def cg_matvec_cuda(buckets: RowBlockBuckets,
                    factors: Sequence[Optional[torch.Tensor]],
                    x: torch.Tensor,
                    tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
-    """``buckets.values`` hold the weights ω (the Ω indicator for ALS).
-    Returns (nb·block_rows, R) float32; callers slice to the true row
-    count."""
+    """``buckets.values`` hold the weights ω (the Ω indicator for ALS);
+    they, the factors and ``x`` share one element type, float32 or
+    bfloat16. Returns (nb·block_rows, R) in that type; callers slice to the
+    true row count."""
     global launches, last_launch
     r = x.shape[1]
     table = check_buckets(buckets, factors, r, x)
-    out = launch_bucketed("repro_cg_matvec_bucketed_f32", buckets, table, x,
-                          r, tile)
+    out = launch_bucketed("cg_matvec_bucketed", buckets, table, x, r, tile)
     if buckets.num_blocks:
         launches += 1
+        launches_by_dtype[_build.dtype_name(buckets.values.dtype)] += 1
         last_launch = (tile.threads, tile.per_thread)
     return out

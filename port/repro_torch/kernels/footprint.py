@@ -7,11 +7,13 @@ prices that, per CTA, from a :class:`~repro_torch.kernels.tile.KernelTile`
 and the workload's geometry alone (no launch):
 
 * dynamic shared memory, exact: ``4 · block_rows · RS`` bytes for the
-  bucketed body's output rows (``csrc/bucket_rows.cuh``), twice that for
-  the fused matvec (x's rows too), RS the widest launch's padded row (R
-  rounded up to 4 floats, at most 128); none for TTTP;
+  bucketed body's float output rows (``csrc/bucket_rows.cuh``), twice that
+  for the fused matvec (x's rows too, held as floats), RS the widest
+  launch's padded row in elements (R rounded up to a 16-byte vector, 4
+  floats or 8 bf16 values, at most 128); none for TTTP;
 * registers per thread and static shared memory: the compiler's counts
-  for the instantiation the launch takes, from the build log
+  for the instantiation the launch takes (its element type included),
+  from the build log
   (``_build.resource_usage``), or, before a build, the launch-bounds cap
   of 255 registers and no static shared memory;
 * threads per CTA.
@@ -39,7 +41,7 @@ import torch
 
 from repro_torch.core.utils import round_up
 from repro_torch.kernels import _build
-from repro_torch.kernels.mttkrp import MAX_RANK, ROW_ALIGN
+from repro_torch.kernels.mttkrp import MAX_RANK, padded_width
 from repro_torch.kernels.tile import MAX_THREADS, KernelTile
 
 # H100 (compute capability 9.0) per-CTA and per-SM limits
@@ -49,6 +51,10 @@ SMEM_RESERVED_PER_BLOCK = 1_024     # the runtime's own per CTA
 REGS_PER_SM = 65_536
 REGS_PER_THREAD = 255               # also the launch-bounds cap
 REG_ALLOC_UNIT = 256                # registers are allocated per warp
+# an SM's register file is split over its 4 sub-partitions (one warp
+# scheduler each); a warp's registers come from one of them, so registers
+# limit warps per sub-partition, not per SM
+SM_SUB_PARTITIONS = 4
 THREADS_PER_SM = 2_048
 BLOCKS_PER_SM = 32
 # the bucketed body's instantiations (csrc/bucket_rows.cuh launch_bucket_rows)
@@ -86,15 +92,18 @@ def limits() -> Dict[str, int]:
                                           THREADS_PER_SM))}
 
 
-def row_width(rank: int) -> int:
-    """RS, the padded row of the bucketed body's widest launch."""
-    return round_up(min(rank, MAX_RANK), ROW_ALIGN)
+def row_width(rank: int, dtype: torch.dtype = torch.float32) -> int:
+    """RS, the padded row (in elements of ``dtype``) of the bucketed body's
+    widest launch."""
+    return padded_width(min(rank, MAX_RANK), dtype)
 
 
-def dynamic_smem_bytes(block_rows: int, rank: int, fused: bool) -> int:
-    """Dynamic shared memory of one bucketed CTA: its ``block_rows`` output
-    rows of RS floats, and as many rows of x when ``fused``."""
-    return 4 * block_rows * row_width(rank) * (2 if fused else 1)
+def dynamic_smem_bytes(block_rows: int, rank: int, fused: bool,
+                       dtype: torch.dtype = torch.float32) -> int:
+    """Dynamic shared memory of one bucketed CTA on ``dtype`` operands: its
+    ``block_rows`` output rows of RS floats, and as many rows of x when
+    ``fused`` (x is held as floats whatever its input type)."""
+    return 4 * block_rows * row_width(rank, dtype) * (2 if fused else 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,14 +114,15 @@ class KernelGeometry:
     (the present ones for TTTP, the non-target ones for the bucketed
     kernels); ``capacity`` is the padded-COO cap (TTTP) or the CCSR bucket
     capacity (bucketed kernels); ``x_rows`` is the CG direction's row
-    extent (cg_matvec only)."""
+    extent (cg_matvec only); ``dtype`` the operands' element type, which
+    picks the instantiation and the padded row."""
     nd: int
     rank: int
     factor_rows: Tuple[int, ...]
     capacity: int
     block_rows: int = 8
     x_rows: Optional[int] = None
-    value_bytes: int = 4
+    dtype: torch.dtype = torch.float32
     index_bytes: int = 4
 
 
@@ -122,19 +132,22 @@ def _fused(family: str, rank: int) -> bool:
 
 
 def instantiation(family: str, geom: KernelGeometry, tile: KernelTile
-                  ) -> Tuple[str, int, Tuple[str, Tuple[int, ...]]]:
+                  ) -> Tuple[str, int, Tuple[str, Tuple]]:
     """(family the launch takes, template variant, build-log key) of the
     kernel ``family`` launches on ``geom`` under ``tile``: TTTP's NP (the
-    present factors) or the bucketed body's RMAX, with the tile's depth."""
+    present factors) or the bucketed body's RMAX, with the tile's depth and
+    the geometry's element type."""
+    dt = _build.dtype_name(geom.dtype)
     if family == "tttp":
         np_ = len(geom.factor_rows)
-        return "tttp", np_, ("tttp_kernel", (np_, tile.per_thread))
+        return "tttp", np_, ("tttp_kernel", (np_, tile.per_thread, dt))
     if family not in ("mttkrp", "cg_matvec"):
         raise KeyError(f"unknown kernel family {family!r}")
     fused = _fused(family, geom.rank)
-    rmax = next(v for v in RMAX_VARIANTS if v >= row_width(geom.rank))
+    rmax = next(v for v in RMAX_VARIANTS
+                if v >= row_width(geom.rank, geom.dtype))
     return (("cg_matvec" if fused else "mttkrp"), rmax,
-            ("bucket_rows_kernel", (rmax, int(fused), tile.per_thread)))
+            ("bucket_rows_kernel", (rmax, int(fused), tile.per_thread, dt)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,11 +181,13 @@ class FootprintEstimate:
     @property
     def blocks_per_sm(self) -> int:
         """CTAs one SM holds at once by this model: the least of the
-        thread, register (per-warp allocation) and shared-memory limits."""
+        thread, register (per-warp allocation, warps per sub-partition)
+        and shared-memory limits."""
         lim = dict(self.limits)
         warps = -(-self.threads // 32)
         per_warp = round_up(max(self.registers, 1) * 32, REG_ALLOC_UNIT)
-        by_regs = (lim["regs_per_sm"] // per_warp) // warps
+        per_part = lim["regs_per_sm"] // SM_SUB_PARTITIONS
+        by_regs = SM_SUB_PARTITIONS * (per_part // per_warp) // warps
         by_smem = lim["smem_per_sm"] // (self.smem_bytes
                                          + SMEM_RESERVED_PER_BLOCK)
         return min(lim["threads_per_sm"] // self.threads, by_regs, by_smem,
@@ -198,7 +213,7 @@ def estimate_footprint(family: str, tile: KernelTile, geom: KernelGeometry,
     launched, variant, key = instantiation(family, geom, tile)
     parts: List[Tuple[str, int]] = []
     if launched != "tttp":
-        rows = 4 * geom.block_rows * row_width(geom.rank)
+        rows = 4 * geom.block_rows * row_width(geom.rank, geom.dtype)
         parts.append(("output rows", rows))
         if launched == "cg_matvec":
             parts.append(("x rows", rows))
@@ -225,22 +240,23 @@ def workload_geometry(family: str, st, factors, tile: KernelTile,
     reference rounds it."""
     nd = len(st.shape)
     rank = next(int(f.shape[1]) for f in factors if f is not None)
-    vb = st.values.element_size()
+    dt = st.values.dtype
     if family == "tttp":
         rows = tuple(int(f.shape[0]) for f in factors if f is not None)
         return KernelGeometry(nd=nd, rank=rank, factor_rows=rows,
                               capacity=int(st.cap),
-                              block_rows=tile.block_rows, value_bytes=vb)
+                              block_rows=tile.block_rows, dtype=dt)
     rows = tuple(int(f.shape[0]) for d, f in enumerate(factors)
                  if d != 0 and f is not None)
     idx = st.indices[:, 0][st.valid].long()
     occ = torch.bincount(idx // tile.block_rows) if idx.numel() else None
+    # repro-lint: disable=JS002 -- tuner geometry, once per workload
     cap = round_up(max(int(occ.max()) if occ is not None else 1, 1), 8)
     x_rows = int(x.shape[0]) if (family == "cg_matvec" and x is not None) \
         else (int(st.shape[0]) if family == "cg_matvec" else None)
     return KernelGeometry(nd=nd, rank=rank, factor_rows=rows, capacity=cap,
                           block_rows=tile.block_rows, x_rows=x_rows,
-                          value_bytes=vb)
+                          dtype=dt)
 
 
 def prune_lattice(family: str, lattice: Sequence[KernelTile],

@@ -4,10 +4,13 @@ shares with the fused CG matvec (``kernels/cg_matvec.py``).
 
 Both run one kernel body (``csrc/bucket_rows.cuh``): one CTA per CCSR
 bucket, which sums the bucket's ``block_rows`` output rows in shared memory
-from per-thread running sums (``csrc/scatter_rows.cuh``). The kernel
-gathers factor rows as 16-byte loads, so the wrappers hand it copies of the
-factors padded with zero columns to a row stride of a multiple of 4 floats
-(:func:`pad_rows`); the zero columns add exact zeros. One launch covers at
+from per-thread running sums (``csrc/scatter_rows.cuh``). The body is
+instantiated for float32 and bfloat16 operands: a bf16 launch reads bf16
+values, factor rows and x, accumulates in float32 and writes bf16. The
+kernel gathers factor rows as 16-byte loads, so the wrappers hand it copies
+of the factors padded with zero columns to a row stride of 16 bytes, 4
+floats or 8 bf16 values (:func:`pad_rows`); the zero columns add exact
+zeros. One launch covers at
 most ``MAX_RANK`` columns, since the body keeps a Khatri-Rao row and a
 running sum in registers: the MTTKRP takes any R as one launch per column
 tile (:func:`column_tiles`), each over a padded copy of the tile's columns,
@@ -16,8 +19,8 @@ padded rows would need a row stride apart from the width the body computes,
 and separating the two changed how nvcc compiled the body for R ≤ 128.)
 The launch shape (threads per CTA, slots per thread) is a
 ``kernels.tile.KernelTile``. ``launches`` counts the MTTKRP kernel's
-launches and ``last_launch`` holds the (threads, per_thread) of the last
-one.
+launches, ``launches_by_dtype`` splits them by element type, and
+``last_launch`` holds the (threads, per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -34,20 +37,28 @@ from repro_torch.sparse.ccsr import RowBlockBuckets
 # Khatri-Rao row and a running sum in registers, compiled for widths up to
 # this
 MAX_RANK = 128
-# floats per 16-byte vector load of a padded row
-ROW_ALIGN = 4
+# bytes of one vector load of a padded row
+ROW_BYTES = 16
 
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 last_launch = None
 
 
+def padded_width(r: int, dtype: torch.dtype) -> int:
+    """RS, the row stride in elements the kernels take for R columns: R
+    rounded up to one 16-byte vector load (4 float32, 8 bfloat16)."""
+    return round_up(r, ROW_BYTES // dtype.itemsize)
+
+
 def pad_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` (rows, R) as rows of ``round_up(R, 4)`` floats: a contiguous
-    copy whose columns past R are zero, at a 16-byte-aligned address, so
-    every row starts on a 16-byte boundary. ``t`` itself when it already is
+    """``t`` (rows, R) as rows of :func:`padded_width` elements (16 bytes a
+    vector: R rounded up to 4 floats or 8 bf16 values): a contiguous copy
+    whose columns past R are zero, at a 16-byte-aligned address, so every
+    row starts on a 16-byte boundary. ``t`` itself when it already is
     one."""
     r = t.shape[1]
-    width = round_up(r, ROW_ALIGN)
+    width = padded_width(r, t.dtype)
     if width == r and t.is_contiguous() and t.data_ptr() % 16 == 0:
         return t
     return torch.nn.functional.pad(t, (0, width - r)).contiguous()
@@ -64,9 +75,10 @@ def column_tiles(r: int) -> List[Tuple[int, int]]:
 def check_buckets(buckets: RowBlockBuckets, factors, r: int,
                   x: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
     """Check the bucket arrays, the factors and ``x`` (given for the fused
-    matvec) for launches over ``r`` columns, and the shared-memory rows of
-    the widest launch (its (block_rows, padded width) sums, and as many rows
-    of x when fused). Returns the factor table the kernels take: None at
+    matvec) for launches over ``r`` columns, all of one element type
+    (float32 or bfloat16), and the shared-memory rows of the widest launch
+    (its (block_rows, padded width) float sums, and as many rows of x when
+    fused). Returns the factor table the kernels take: None at
     ``buckets.mode`` and for absent factors."""
     dev = buckets.values.device
     nb, c = buckets.values.shape
@@ -80,7 +92,11 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
                          f"Khatri-Rao row in registers up to R={MAX_RANK}; "
                          f"kernels.ops.cg_matvec_bucketed routes wider R "
                          f"through TTTP and the MTTKRP")
-    _build.check_operand("bucket values", buckets.values, torch.float32, dev)
+    table = [None if d == buckets.mode else f for d, f in enumerate(factors)]
+    dt = _build.operand_dtype(
+        values=buckets.values, x=x,
+        **{f"factor {d}": f for d, f in enumerate(table)})
+    _build.check_operand("bucket values", buckets.values, dt, dev)
     _build.check_operand("bucket indices", buckets.indices, torch.int32, dev,
                          (nb, c, nd))
     _build.check_operand("bucket local_row", buckets.local_row, torch.int32,
@@ -89,14 +105,14 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
                          (nb, c))
     # here, not at the top: footprint imports this module's MAX_RANK
     from repro_torch.kernels import footprint
-    smem = footprint.dynamic_smem_bytes(buckets.block_rows, r, x is not None)
+    smem = footprint.dynamic_smem_bytes(buckets.block_rows, r, x is not None,
+                                        dt)
     if smem > footprint.SMEM_PER_BLOCK_OPTIN:
         raise ValueError(f"{smem} B of shared-memory rows exceed the "
                          f"{footprint.SMEM_PER_BLOCK_OPTIN} B a CTA may use")
-    table = [None if d == buckets.mode else f for d, f in enumerate(factors)]
-    _build.check_factors(table, r, torch.float32, dev)
+    _build.check_factors(table, r, dt, dev)
     if x is not None:
-        _build.check_operand("x", x, torch.float32, dev, (x.shape[0], r))
+        _build.check_operand("x", x, dt, dev, (x.shape[0], r))
     return table
 
 
@@ -104,28 +120,30 @@ def launch_bucketed(name: str, buckets: RowBlockBuckets,
                     table: Sequence[Optional[torch.Tensor]],
                     x: Optional[torch.Tensor], r: int,
                     tile: KernelTile) -> torch.Tensor:
-    """Launch the bucketed kernel ``name`` (the fused matvec when ``x`` is
-    given) once over the ``r`` ≤ ``MAX_RANK`` columns of a factor table from
-    :func:`check_buckets`, on zero-padded copies of the factors and x, in
-    ``tile``'s launch shape. Returns (nb·block_rows, r) float32; launches
-    nothing when there are no buckets."""
+    """Launch the bucketed kernel ``name`` (``mttkrp_bucketed``, or
+    ``cg_matvec_bucketed`` when ``x`` is given) once over the ``r`` ≤
+    ``MAX_RANK`` columns of a factor table from :func:`check_buckets`, on
+    zero-padded copies of the factors and x, in ``tile``'s launch shape, in
+    the instantiation for the operands' element type. Returns
+    (nb·block_rows, r) in that type; launches nothing when there are no
+    buckets."""
     nb, c = buckets.values.shape
     dev = buckets.values.device
-    out = torch.empty(nb * buckets.block_rows, r, dtype=torch.float32,
-                      device=dev)
+    dt = buckets.values.dtype
+    out = torch.empty(nb * buckets.block_rows, r, dtype=dt, device=dev)
     if nb == 0:
         return out
     padded = [None if f is None else pad_rows(f) for f in table]
     xp = None if x is None else pad_rows(x)
     with torch.cuda.device(dev):
-        _build.launch(name, buckets.values.data_ptr(),
+        _build.launch(_build.entry(name, dt), buckets.values.data_ptr(),
                       buckets.indices.data_ptr(),
                       buckets.local_row.data_ptr(), buckets.valid.data_ptr(),
                       nb, c, buckets.indices.shape[-1], buckets.mode,
                       _build.pointer_table(padded),
                       None if xp is None else xp.data_ptr(),
                       0 if xp is None else xp.shape[0], r,
-                      round_up(r, ROW_ALIGN), buckets.block_rows,
+                      padded_width(r, dt), buckets.block_rows,
                       out.data_ptr(), tile.threads, tile.per_thread,
                       torch.cuda.current_stream(dev).cuda_stream)
     return out
@@ -135,9 +153,10 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
                 factors: Sequence[Optional[torch.Tensor]],
                 tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """Bucketed MTTKRP; factors at ``buckets.mode`` and None factors are
-    skipped. One launch per column tile (:func:`column_tiles`), the tiles'
-    outputs joined by columns. Returns (nb·block_rows, R) float32; callers
-    slice to ``shape[mode]`` rows."""
+    skipped. Values and factors share one element type, float32 or
+    bfloat16. One launch per column tile (:func:`column_tiles`), the tiles'
+    outputs joined by columns. Returns (nb·block_rows, R) in the operands'
+    type; callers slice to ``shape[mode]`` rows."""
     global launches, last_launch
     other = [f for d, f in enumerate(factors)
              if d != buckets.mode and f is not None]
@@ -149,9 +168,10 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
     for c0, w in column_tiles(r):
         # a column tile of all R columns is the factor itself (same storage)
         cols = [None if f is None else f[:, c0:c0 + w] for f in table]
-        outs.append(launch_bucketed("repro_mttkrp_bucketed_f32", buckets,
-                                    cols, None, w, tile))
+        outs.append(launch_bucketed("mttkrp_bucketed", buckets, cols, None,
+                                    w, tile))
         if buckets.num_blocks:
             launches += 1
+            launches_by_dtype[_build.dtype_name(buckets.values.dtype)] += 1
             last_launch = (tile.threads, tile.per_thread)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

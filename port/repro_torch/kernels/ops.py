@@ -7,12 +7,19 @@ A CUDA tensor goes to the hand-written kernel (``kernels.tttp``,
 tensor goes to the plain PyTorch version in ``kernels.ref``. There is no
 switch and no fallback between the two.
 
-Results keep the reference's shapes: the kernels take float32 and
-accumulate in float32 into padded outputs (``nb·block_rows`` rows for the
-bucketed ones), which are sliced back to ``num_rows``. The reference also
-padded the nonzero and capacity
-axes to its Pallas tile multiples; the CUDA kernels mask their ragged edge
-themselves, so those pads are not carried over.
+Element types follow the reference (``kernels/ops.py:_out_dtype``): the
+kernels take float32 or bfloat16 operands, keep the Hadamard chain and every
+sum in float32 and write their operands' type; a result has the promoted
+type of the values (x for the Gram matvec) and the factors, on either
+device. Mixed inputs are promoted on the card before the launch, over
+every floating operand (``torch.result_type``'s rule, the reference's
+``jnp.result_type``): each kernel takes one element type. A type neither
+instantiation takes (float64, float16) raises on the card. Results keep
+the reference's shapes: the kernels write padded outputs (``nb·block_rows``
+rows for the bucketed ones), which are sliced back to ``num_rows``. The
+reference also padded the nonzero and capacity axes to its Pallas tile
+multiples; the CUDA kernels mask their ragged edge themselves, so those
+pads are not carried over.
 
 Launch shapes: each wrapper takes ``tile=``, a ``kernels.tile.KernelTile``
 (threads per CTA, slots or nonzeros per thread); an explicit tile wins,
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, Iterator, Optional, Sequence
 
 import torch
@@ -56,6 +64,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         mod.launches = 0
+        for k in mod.launches_by_dtype:
+            mod.launches_by_dtype[k] = 0
 
 
 def last_launches() -> Dict[str, Optional[tuple]]:
@@ -77,6 +87,7 @@ def recorded_launches() -> Iterator[Dict[str, int]]:
     entry, and the dict yielded holds the launches the wrappers recorded
     inside, which the graph makes at each replay."""
     before = launch_counts()
+    by_dtype = launch_counts_by_dtype()
     held: Dict[str, int] = {}
     try:
         yield held
@@ -84,10 +95,36 @@ def recorded_launches() -> Iterator[Dict[str, int]]:
         for name, n in launch_counts().items():
             held[name] = n - before[name]
             _MODULES[name].launches = before[name]
+            _MODULES[name].launches_by_dtype.update(by_dtype[name])
 
 
 def _on_card(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def _promoted(*tensors) -> torch.dtype:
+    """The promoted element type of the tensors given (None skipped): the
+    reference's ``jnp.result_type`` over the same operands."""
+    return functools.reduce(torch.promote_types,
+                            [t.dtype for t in tensors if t is not None])
+
+
+def _out_dtype(first: torch.Tensor, factors) -> torch.dtype:
+    """The reference's ``_out_dtype``: the promoted type of ``first`` (the
+    values, or x for the Gram matvec) and the present factors."""
+    return _promoted(first, *factors)
+
+
+def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
+    return t if t is None or t.dtype == dtype else t.to(dtype)
+
+
+def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
+    """Per kernel, its launches split by element type (``float32``,
+    ``bfloat16``), zeroed with the counts: what shows which instantiation
+    ran. Eager launches only: a graph replay adds to the totals alone."""
+    return {name: dict(mod.launches_by_dtype)
+            for name, mod in _MODULES.items()}
 
 
 def _resolve_tile(family: str,
@@ -118,11 +155,15 @@ def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
     factors = [None if f is None else (f[:, None] if f.dim() == 1 else f)
                for f in factors]
     t = _resolve_tile("tttp", tile)
+    dt = _out_dtype(values, factors)
     with obs.span("kernel/tttp", m=values.shape[0], tile=t.short()) as sp:
         if not _on_card(values):
-            return sp.fence(kref.tttp_ref(values, indices, valid, factors))
+            return sp.fence(kref.tttp_ref(values, indices, valid,
+                                          factors).to(dt))
         _refuse_grad("TTTP", values, *factors)
-        return sp.fence(ktttp.tttp_cuda(values, indices, valid, factors, t))
+        return sp.fence(ktttp.tttp_cuda(
+            _cast(values, dt), indices, valid,
+            [_cast(f, dt) for f in factors], t))
 
 
 def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]],
@@ -152,20 +193,26 @@ def tttp(st: SparseTensor, factors) -> SparseTensor:
 def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                     num_rows: Optional[int] = None,
                     tile: Optional[ktile.KernelTile] = None) -> torch.Tensor:
-    """All-at-once MTTKRP over ingest-time buckets; returns (num_rows, R).
-    On the card any R: one launch per column tile of at most
-    ``kernels.mttkrp.MAX_RANK`` columns."""
+    """All-at-once MTTKRP over ingest-time buckets; returns (num_rows, R)
+    in the promoted type of the values and the factors. On the card any R:
+    one launch per column tile of at most ``kernels.mttkrp.MAX_RANK``
+    columns."""
     num_rows = num_rows or buckets.shape[buckets.mode]
     t = _resolve_tile("mttkrp", tile)
+    dt = _out_dtype(buckets.values, factors)
     with obs.span("kernel/mttkrp_bucketed", mode=buckets.mode,
                   rows=num_rows, tile=t.short()) as sp:
         if not _on_card(buckets.values):
             out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
                                            buckets.local_row, factors,
                                            buckets.mode, buckets.block_rows)
-            return sp.fence(out[:num_rows])
+            return sp.fence(out[:num_rows].to(dt))
         _refuse_grad("MTTKRP", buckets.values, *factors)
-        return sp.fence(kmttkrp.mttkrp_cuda(buckets, factors, t)[:num_rows])
+        if buckets.values.dtype != dt:
+            buckets = dataclasses.replace(buckets,
+                                          values=buckets.values.to(dt))
+        return sp.fence(kmttkrp.mttkrp_cuda(
+            buckets, [_cast(f, dt) for f in factors], t)[:num_rows])
 
 
 def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
@@ -173,7 +220,10 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                        tile: Optional[ktile.KernelTile] = None
                        ) -> torch.Tensor:
     """Implicit-CG Gram matvec (paper eq. 3) over the Ω buckets (their
-    values are the weights ω), routed by rank on both devices:
+    values are the weights ω), in the promoted type of x and the factors
+    (the reference's rule, which leaves ω out; on the card ω joins the
+    promotion of the operands the kernel takes), routed by rank on both
+    devices:
 
     - R ≤ ``kernels.mttkrp.MAX_RANK``: one fused pass (the fused CG-matvec
       kernel on the card);
@@ -192,6 +242,7 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
         return mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
                                num_rows)
     t = _resolve_tile("cg_matvec", tile)
+    dt = _out_dtype(x, factors)
     with obs.span("kernel/cg_matvec_bucketed", mode=mode, rows=num_rows,
                   tile=t.short()) as sp:
         if not _on_card(buckets.values):
@@ -199,10 +250,15 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                                               buckets.indices,
                                               buckets.local_row, factors, x,
                                               mode, buckets.block_rows)
-            return sp.fence(out[:num_rows])
+            return sp.fence(out[:num_rows].to(dt))
         _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
-        return sp.fence(kcg.cg_matvec_cuda(buckets, factors, x,
-                                           t)[:num_rows])
+        kdt = _promoted(buckets.values, x, *factors)
+        if buckets.values.dtype != kdt:
+            buckets = dataclasses.replace(buckets,
+                                          values=buckets.values.to(kdt))
+        out = kcg.cg_matvec_cuda(buckets, [_cast(f, kdt) for f in factors],
+                                 _cast(x, kdt), t)
+        return sp.fence(out[:num_rows].to(dt))
 
 
 BUCKET_MATVEC_PATHS = ("fused", "tttp_mttkrp", "sliced")

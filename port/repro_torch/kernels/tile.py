@@ -12,8 +12,9 @@ A :class:`KernelTile` carries what the CUDA kernels really take at launch:
                   ``SLOTS`` (``csrc/bucket_rows.cuh``) and TTTP's ``NZ``
                   (``csrc/tttp.cu``), template depths compiled for
                   ``PER_THREAD_DEPTHS``;
-``accum_dtype`` — the accumulator, float32 only (bf16 inputs are
-                  ``ROADMAP.md`` Queue B item 1).
+``accum_dtype`` — the accumulator, float32 only: the kernels accumulate
+                  in float32 for float32 and bfloat16 inputs alike, as
+                  every path of the reference does.
 
 Tiles are frozen, hashable and round-trip through JSON (the on-disk plan
 cache, ``planner.tuner``). The process-wide table below is what
@@ -59,8 +60,9 @@ class KernelTile:
         if self.accum_dtype != "float32":
             raise ValueError(
                 f"accum_dtype {self.accum_dtype!r}: the CUDA kernels "
-                f"accumulate in float32 only; other accumulators come with "
-                f"bf16 inputs, ROADMAP.md Queue B item 1")
+                f"accumulate in float32 only, for float32 and bfloat16 "
+                f"inputs alike (no path of the reference uses another "
+                f"accumulator)")
         if self.block_rows < 1:
             raise ValueError("block_rows must be positive")
         if self.threads < 32 or self.threads % 32 or \

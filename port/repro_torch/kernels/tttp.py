@@ -4,11 +4,14 @@ reference's ``kernels/tttp.py:tttp_pallas``.
 ``out[n] = valid[n] ? values[n] · Σ_r Π_{d present} A_d[indices[n, d], r]
 : 0``, no scatter. The kernel reads the valid mask itself and gathers factor
 rows as 16-byte loads, so the wrapper hands it zero-padded copies of the
-factors with a row stride of a multiple of 4 floats
-(``kernels.mttkrp.pad_rows``). It takes any R. The launch shape (threads
+factors with a row stride of 16 bytes, 4 floats or 8 bf16 values
+(``kernels.mttkrp.pad_rows``). It takes any R, and values and factors of
+one element type, float32 or bfloat16: a bf16 launch reads bf16, sums in
+float32 and writes bf16. The launch shape (threads
 per CTA, nonzeros per thread) is a ``kernels.tile.KernelTile``.
-``launches`` counts the kernel's launches and ``last_launch`` holds the
-(threads, per_thread) of the last one.
+``launches`` counts the kernel's launches, ``launches_by_dtype`` splits them
+by element type, and ``last_launch`` holds the (threads, per_thread) of the
+last one.
 """
 from __future__ import annotations
 
@@ -16,12 +19,12 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.utils import round_up
 from repro_torch.kernels import _build
-from repro_torch.kernels.mttkrp import ROW_ALIGN, pad_rows
+from repro_torch.kernels.mttkrp import pad_rows, padded_width
 from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 
 launches = 0
+launches_by_dtype = {"float32": 0, "bfloat16": 0}
 last_launch = None
 
 
@@ -29,9 +32,10 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
               valid: torch.Tensor,
               factors: Sequence[Optional[torch.Tensor]],
               tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
-    """``values (m,)`` float32, ``indices (m, nd)`` int32, ``valid (m,)``
-    bool, ``factors[d]`` ``(shape[d], R)`` float32 or None, all contiguous
-    on one CUDA device. Returns (m,) float32, 0 where ``valid`` is false."""
+    """``values (m,)``, ``indices (m, nd)`` int32, ``valid (m,)`` bool,
+    ``factors[d]`` ``(shape[d], R)`` or None, all contiguous on one CUDA
+    device, values and factors of one element type (float32 or bfloat16).
+    Returns (m,) in that type, 0 where ``valid`` is false."""
     global launches, last_launch
     dev = values.device
     m, nd = indices.shape
@@ -43,21 +47,24 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
     if nd > 8:
         raise ValueError(f"order {nd} > 8: the kernel takes at most 8 modes")
     r = present[0].shape[1]
-    _build.check_operand("values", values, torch.float32, dev, (m,))
+    dt = _build.operand_dtype(
+        values=values, **{f"factor {d}": f for d, f in enumerate(factors)})
+    _build.check_operand("values", values, dt, dev, (m,))
     _build.check_operand("indices", indices, torch.int32, dev)
     _build.check_operand("valid", valid, torch.bool, dev, (m,))
-    _build.check_factors(factors, r, torch.float32, dev)
-    out = torch.empty(m, dtype=torch.float32, device=dev)
+    _build.check_factors(factors, r, dt, dev)
+    out = torch.empty(m, dtype=dt, device=dev)
     if m == 0:
         return out
     padded = [None if f is None else pad_rows(f) for f in factors]
     table = _build.pointer_table(padded)
     with torch.cuda.device(dev):
-        _build.launch("repro_tttp_f32", values.data_ptr(), indices.data_ptr(),
-                      valid.data_ptr(), m, nd, table, r,
-                      round_up(r, ROW_ALIGN), out.data_ptr(), tile.threads,
+        _build.launch(_build.entry("tttp", dt), values.data_ptr(),
+                      indices.data_ptr(), valid.data_ptr(), m, nd, table, r,
+                      padded_width(r, dt), out.data_ptr(), tile.threads,
                       tile.per_thread,
                       torch.cuda.current_stream(dev).cuda_stream)
     launches += 1
+    launches_by_dtype[_build.dtype_name(dt)] += 1
     last_launch = (tile.threads, tile.per_thread)
     return out

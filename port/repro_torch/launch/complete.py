@@ -284,7 +284,8 @@ class MeshRun:
     runs: List[Run]
 
 
-def _sync(device: torch.device) -> None:
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` when it is a card."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -376,7 +377,7 @@ def run_solver(args, ds: CompletionDataset,
     hist, per_sweep, launches, damping, comms = [], [], [], [], []
 
     def fence():
-        _sync(device)
+        synchronize(device)
         if layout is not None:
             layout.barrier()
 
@@ -452,7 +453,7 @@ def run_main(args, layout: Optional[DistLayout] = None) -> Run:
     set_default_config(PlannerConfig(block_rows=args.block_rows))
     t0 = time.perf_counter()
     ds, factors = load_problem(args, layout)
-    _sync(ds.tensor.device)
+    synchronize(ds.tensor.device)
     st = ds.tensor
     rank = factors[0].shape[1] * (layout.model_size if layout else 1)
     print(f"dataset={args.dataset} shape={st.shape} nnz={ds.global_nnz} "
@@ -512,6 +513,7 @@ def _rank_main(rank: int, args, tmp: str) -> None:
                            for fs in run.sweep_factors])
         torch.save(run, os.path.join(tmp, f"rank_{rank}.pt"))
         # no rank tears its connections down while another still works
+        # repro-lint: disable=SP103 -- the teardown waits for every rank
         coll.barrier()
     finally:
         dist.destroy_process_group()

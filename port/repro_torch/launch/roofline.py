@@ -36,9 +36,10 @@ PEAK_FLOPS = 67e12
 HBM_BW = 3.35e12
 LINK_BW = 450e9
 
-# what one slot of each layout reads: value (4), valid (1), nd int32
-# indices, and for the bucketed layouts local_row (4)
-_VALUE, _VALID, _INDEX, _LOCAL_ROW = 4, 1, 4, 4
+# what one slot of each layout reads beside its value (one element of the
+# operands' type): valid (1), nd int32 indices, and for the bucketed layouts
+# local_row (4)
+_VALID, _INDEX, _LOCAL_ROW = 1, 4, 4
 _FAMILIES = ("tttp", "mttkrp", "cg_matvec")
 # the aten products whose profiler flops count as matrix-product flops
 MATMUL_OPS = ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")
@@ -57,12 +58,14 @@ def bound(n_bytes: float, n_ops: float, machine: Machine = None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def gather_sector_bytes(n_rows: int, r: int) -> float:
+def gather_sector_bytes(n_rows: int, r: int, elem_bytes: int = 4) -> float:
     """L2 sector bytes that gathering ``n_rows`` factor rows takes when each
-    row is read whole at the kernels' padded stride (R rounded up to 4
-    floats): the 32-byte sectors a row spans, averaged over the row
-    offsets, which repeat every 8 rows."""
-    stride = 4 * (-(-r // 4) * 4)
+    row is read whole at the kernels' padded stride (R rounded up to a
+    16-byte vector of ``elem_bytes`` elements: 4 floats, 8 bf16 values):
+    the 32-byte sectors a row spans, averaged over the row offsets, which
+    repeat every 8 rows."""
+    per_vec = 16 // elem_bytes
+    stride = elem_bytes * (-(-r // per_vec) * per_vec)
     spans = [(i * stride + stride - 1) // 32 - i * stride // 32 + 1
              for i in range(8)]
     return n_rows * 32 * sum(spans) / len(spans)
@@ -70,8 +73,8 @@ def gather_sector_bytes(n_rows: int, r: int) -> float:
 
 def kernel_terms(family: str, *, slots: int, nd: int, rank: int,
                  valid: int, factor_rows: Sequence[int], out_rows: int = 0,
-                 x_rows: int = 0, valid_only: bool = False
-                 ) -> Dict[str, float]:
+                 x_rows: int = 0, valid_only: bool = False,
+                 elem_bytes: int = 4) -> Dict[str, float]:
     """Flops and bytes one call of a kernel family needs, from shapes.
 
     ``slots`` are the entries the kernel walks (the COO's m, or a bucket
@@ -81,8 +84,10 @@ def kernel_terms(family: str, *, slots: int, nd: int, rank: int,
     those are read); ``out_rows`` the bucketed kernels' output rows
     (nb·block_rows) and ``x_rows`` the fused matvec's rows of x. TTTP reads
     value, valid and indices per slot (a bucket view as flat slots) and
-    writes one float per slot; the bucketed kernels also read local_row and
-    write (out_rows, R).
+    writes one value per slot; the bucketed kernels also read local_row and
+    write (out_rows, R). Values, factors, x and the output are priced at
+    ``elem_bytes`` an element (4 float32, 2 bfloat16: the kernels read and
+    write their operands' type); indices, valid and local_row as they are.
     ``valid_only`` counts the valid entries' bytes alone (the function
     needs no more; skewed and serving layouts pad heavily). Operations
     count, per valid entry, R multiplies per factor (TTTP), plus R
@@ -91,17 +96,18 @@ def kernel_terms(family: str, *, slots: int, nd: int, rank: int,
     if family not in _FAMILIES:
         raise KeyError(f"unknown kernel family {family!r}")
     n = valid if valid_only else slots
-    per_slot = _VALUE + _VALID + _INDEX * nd
-    factor_bytes = 4 * rank * sum(factor_rows)
+    e = elem_bytes
+    per_slot = e + _VALID + _INDEX * nd
+    factor_bytes = e * rank * sum(factor_rows)
     if family == "tttp":
-        moved = n * (per_slot + 4) + factor_bytes
+        moved = n * (per_slot + e) + factor_bytes
         ops = valid * rank * len(factor_rows)
     else:
         moved = (n * (per_slot + _LOCAL_ROW) + factor_bytes
-                 + 4 * rank * out_rows)
+                 + e * rank * out_rows)
         ops = valid * rank * (len(factor_rows) + 1)
         if family == "cg_matvec":
-            moved += 4 * rank * x_rows
+            moved += e * rank * x_rows
             ops = valid * rank * (len(factor_rows) + 3)
     return {"flops": float(ops), "bytes": float(moved),
             "collective_bytes": 0.0}

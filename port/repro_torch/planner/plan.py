@@ -134,19 +134,19 @@ def plan_contraction(expr: str, operands: Sequence,
     declares the dense factors' ROWS sharded over the data axes (paper
     Fig. 2), whose only candidate is ``rowsharded``.
 
-    Refused with a message, never ignored: ``validate=True`` (the
-    reference's abstract all-paths-agree certificate, ``ROADMAP.md`` Queue A
-    item 5, the static gates) and ``validate_spmd=True`` (a check of jax's
-    collective schedule, item 5).
+    ``validate=True`` certifies a NEW plan before it enters the cache
+    (``analysis.contracts.certify_candidates``): every candidate path runs
+    once on these operands and must give the same output structure, shape,
+    dtype and device, else ``PlanContractError``; a cached plan is returned
+    as it is. ``validate_spmd=True`` (the reference's sharding interpreter
+    over jaxprs, SP001–SP004) is refused with a message, never ignored: its
+    torch counterpart is ``ROADMAP.md`` Queue A item 6.
     """
-    if validate:
-        raise NotImplementedError(
-            "validate=True: the all-paths-agree certificate is part of the "
-            "static gates, ROADMAP.md Queue A item 5, not ported yet")
     if validate_spmd:
         raise NotImplementedError(
-            "validate_spmd=True certifies a jax collective schedule; the "
-            "port's counterpart is ROADMAP.md Queue A item 5")
+            "validate_spmd=True: the sharding interpreter (SP001-SP004, an "
+            "abstract interpreter over the program's collectives) is "
+            "ROADMAP.md Queue A item 6, not ported yet")
     ctx = ctx if ctx is not None else LOCAL
     config = config if config is not None else default_config()
     # the axis SIZES go into the key beside the ctx's names
@@ -165,6 +165,10 @@ def plan_contraction(expr: str, operands: Sequence,
     ir = pir.build_ir(expr, operands, dist=dist)
     ranking = pcost.rank_paths(ir)
     candidates = tuple(c.path for c in ranking)
+    if validate:
+        # here, not at the top: the analysis package imports the planner
+        from repro_torch.analysis.contracts import certify_candidates
+        certify_candidates(ir, candidates, operands, ctx, config)
     if path is not None:
         # a forced path makes autotuning moot: the plan is final
         if path not in candidates:

@@ -95,6 +95,8 @@ class RestartableLoop:
         start, state = self._resume_local(init_state)
         if self.layout is not None:
             from repro_torch.core import collectives as coll
+            # every rank of the run must resume from one step
+            # repro-lint: disable=SP103 -- all ranks agree on the step
             lo, neg_hi = coll.all_reduce_ints([start, -start], op="min")
             if lo != -neg_hi:
                 raise RuntimeError(

@@ -148,6 +148,9 @@ def bucket_pattern(st: SparseTensor, mode: int, block_rows: int,
     nb = cdiv(st.shape[mode], block_rows)
     bucket = rows // block_rows
     counts = torch.bincount(bucket, minlength=nb)
+    # the fullest bucket sizes the pattern's arrays on the host; patterns are
+    # built at ingest (SGD: once per sampled sweep)
+    # repro-lint: disable=JS002 -- a pattern's capacity is a host int
     most = int(counts.max()) if nnz else 0
     if capacity is None:
         capacity = round_up(max(most, 1), capacity_multiple)
@@ -175,6 +178,7 @@ def bucket_pattern(st: SparseTensor, mode: int, block_rows: int,
 def bucket_capacity(counts, capacity_multiple: int = 8) -> int:
     """Bucket capacity from an occupancy-count array."""
     counts = torch.as_tensor(counts)
+    # repro-lint: disable=JS002 -- a pattern's capacity, from ingest's counts
     most = int(counts.max()) if counts.numel() else 1
     return round_up(max(most, 1), capacity_multiple)
 

@@ -215,6 +215,74 @@ def test_wrappers_count_launches_and_refuse_bad_operands(dev):
     assert kops.launch_counts() == {"tttp": 2, "mttkrp": 5, "cg_matvec": 1}
 
 
+# the reference's documented bf16 bound (tests/test_golden.py)
+BF16_TOL = dict(rtol=6e-2, atol=6e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1, 10, 32, 160])
+@pytest.mark.parametrize("sort_mode", [None, 0])
+def test_bf16_kernels_match_plain_versions(dev, r, sort_mode):
+    """The bf16 instantiations read bf16 values, factor rows and x, sum in
+    float32 and write bf16; held against the plain versions on float32
+    copies of the same bf16 inputs, compared in float32. The per-dtype
+    counts show that the bf16 instantiation launched (R = 160: the MTTKRP
+    in two column tiles, the matvec as TTTP then the MTTKRP)."""
+    st, fs = _problem(dev, 7, (60, 40, 30), 3000, r, sort_mode)
+    s16, f16 = st.astype(torch.bfloat16), [f.bfloat16() for f in fs]
+    f32 = [f.float() for f in f16]
+    kops.reset_launch_counts()
+    got = kops.tttp_values(s16, f16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got.float(), kref.tttp_ref(s16.values.float(), st.indices, st.valid,
+                                   f32), **BF16_TOL)
+    om = s16.with_values(torch.ones_like(s16.values))
+    for mode in (0, 2):
+        bk, bo = s16.row_buckets(mode, 8), om.row_buckets(mode, 8)
+        part = [None if d == mode else f for d, f in enumerate(f16)]
+        got = kops.mttkrp_bucketed(bk, part)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), kref.mttkrp_bucketed_ref(
+            bk.values.float(), bk.indices, bk.local_row,
+            [None if f is None else f.float() for f in part], mode,
+            8)[:st.shape[mode]], **BF16_TOL)
+        x = f16[mode]
+        got = kops.cg_matvec_bucketed(bo, f16, x)
+        assert got.dtype == torch.bfloat16
+        torch.testing.assert_close(got.float(), kref.cg_matvec_bucketed_ref(
+            bo.values.float(), bo.indices, bo.local_row, f32, x.float(),
+            mode, 8)[:st.shape[mode]], **BF16_TOL)
+    by_dtype = kops.launch_counts_by_dtype()
+    wide = r > kmttkrp.MAX_RANK
+    assert by_dtype["tttp"] == {"float32": 0, "bfloat16": 1 + 2 * wide}
+    assert by_dtype["mttkrp"] == {"float32": 0,
+                                  "bfloat16": 2 * (1 + wide) * (1 + wide)}
+    assert by_dtype["cg_matvec"] == {"float32": 0,
+                                     "bfloat16": 0 if wide else 2}
+
+
+@pytest.mark.cuda
+def test_mixed_inputs_promote_before_the_launch(dev):
+    """Mixed float32 and bf16 operands run the promoted type's kernel (the
+    reference's rule), and the result takes the reference's dtype: the
+    matvec's weights stay out of it. float64 is refused."""
+    st, fs = _problem(dev, 8, (40, 24, 12), 800, 10)
+    f16 = [f.bfloat16() for f in fs]
+    kops.reset_launch_counts()
+    out = kops.tttp_values(st.astype(torch.bfloat16), fs)
+    assert out.dtype == torch.float32
+    bo = st.with_values(torch.ones_like(st.values)).row_buckets(0, 8)
+    out = kops.cg_matvec_bucketed(bo, f16, f16[0])
+    assert out.dtype == torch.bfloat16
+    assert kops.launch_counts_by_dtype()["tttp"] == {"float32": 1,
+                                                     "bfloat16": 0}
+    assert kops.launch_counts_by_dtype()["cg_matvec"] == {"float32": 1,
+                                                          "bfloat16": 0}
+    with pytest.raises(TypeError):
+        kops.tttp_values(st.astype(torch.float64), [f.double() for f in fs])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("r", [6, 160])
 @pytest.mark.parametrize("path", ["fused", "tttp_mttkrp"])
@@ -663,18 +731,23 @@ def test_kernel_attributes_match_footprint_model(dev):
     _build.lib()
     usage = _build.resource_usage()
     assert usage, "no build log beside the library"
-    for depth in ktile.PER_THREAD_DEPTHS:
+    for depth, dt in ((d, t) for d in ktile.PER_THREAD_DEPTHS
+                      for t in (torch.float32, torch.bfloat16)):
+        name = _build.dtype_name(dt)
         for family, variants, key in (
-                ("tttp", range(1, 9), lambda v: ("tttp_kernel", (v, depth))),
+                ("tttp", range(1, 9),
+                 lambda v: ("tttp_kernel", (v, depth, name))),
                 ("mttkrp", footprint.RMAX_VARIANTS,
-                 lambda v: ("bucket_rows_kernel", (v, 0, depth))),
+                 lambda v: ("bucket_rows_kernel", (v, 0, depth, name))),
                 ("cg_matvec", footprint.RMAX_VARIANTS,
-                 lambda v: ("bucket_rows_kernel", (v, 1, depth)))):
+                 lambda v: ("bucket_rows_kernel", (v, 1, depth, name)))):
             for v in variants:
-                a = _build.kernel_attributes(family, v, depth, 256, 768)
+                a = _build.kernel_attributes(family, v, depth, 256, 768, dt)
                 log = usage[key(v)]
-                assert a["registers"] == log["registers"], (family, v, depth)
-                assert a["static_smem"] == log["smem"], (family, v, depth)
+                assert a["registers"] == log["registers"], (family, v, depth,
+                                                            name)
+                assert a["static_smem"] == log["smem"], (family, v, depth,
+                                                         name)
                 assert a["max_threads"] >= 256 and a["blocks_per_sm"] >= 1
     with pytest.raises(RuntimeError, match="kernel attributes"):
         _build.kernel_attributes("tttp", 9, 2, 256, 0)

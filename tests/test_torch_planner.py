@@ -472,12 +472,40 @@ def test_autotune_pins_a_measured_winner():
     assert forced.path == "t_first" and not forced.autotuned
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(validate=True), "item 5"), (dict(validate_spmd=True), "item 5")])
+@pytest.mark.parametrize("kw,item", [(dict(validate_spmd=True), "item 6")])
 def test_unported_options_raise_naming_their_item(kw, item):
     st, v, w = _mttkrp_ops()
     with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
         planner.plan_contraction("ijk,jr,kr->ir", (st, v, w), **kw)
+
+
+def test_validate_certifies_a_clean_plan_and_refuses_a_corrupted_path():
+    """validate=True runs every candidate on the call's operands before the
+    plan is cached: a clean call plans as without it, a corrupted path
+    raises PlanContractError and caches nothing, and a cache hit skips the
+    check (as the reference's)."""
+    from repro_torch.analysis import contracts
+    st, v, w = _mttkrp_ops()
+    planner.clear_plan_cache()
+    plan = planner.plan_contraction("ijk,jr,kr->ir", (st, v, w),
+                                    validate=True)
+    assert plan.path == planner.plan_contraction(
+        "ijk,jr,kr->ir", (st, v, w)).path
+    assert set(plan.candidates) == {"all_at_once", "bucketed", "t_first",
+                                    "kr_first", "dense"}
+    planner.clear_plan_cache()
+    contracts.set_corrupt("t_first")
+    try:
+        with pytest.raises(contracts.PlanContractError, match="t_first"):
+            planner.plan_contraction("ijk,jr,kr->ir", (st, v, w),
+                                     validate=True)
+        assert planner.plan_cache_size() == 0
+        planner.plan_contraction("ijk,jr,kr->ir", (st, v, w))
+        assert planner.plan_contraction("ijk,jr,kr->ir", (st, v, w),
+                                        validate=True) is not None
+    finally:
+        contracts.set_corrupt(None)
+        planner.clear_plan_cache()
 
 
 class _Sharded:

@@ -43,15 +43,20 @@ from repro_torch.planner import tuner  # noqa: E402
 # what ``-Xptxas -v`` prints for two entry functions (one spilling)
 PTXAS_LOG = """== mttkrp.cu
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118bucket_rows_kernelILi16ELb0ELi2EEEvPKfPKiS4_PKhxii11FactorTableS2_xiiiPf' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_118bucket_rows_kernelILi16ELb0ELi2EEEvPKfPKiS4_PKhxii11FactorTableS2_xiiiPf
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118bucket_rows_kernelILi16ELb0ELi2EfEEvPKT2_PKiS4_PKhxii11FactorTableIS2_ES3_xiiiPS2_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118bucket_rows_kernelILi16ELb0ELi2EfEEvPKT2_PKiS4_PKhxii11FactorTableIS2_ES3_xiiiPS2_
     8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
 ptxas info    : Used 72 registers, used 1 barriers, 456 bytes cmem[0]
 == tttp.cu
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111tttp_kernelILi3ELi4EEEvPKfPKiPKhxi14PresentFactorsiiPf' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_111tttp_kernelILi3ELi4EEEvPKfPKiPKhxi14PresentFactorsiiPf
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111tttp_kernelILi3ELi4EfEEvPKT1_PKiPKhxi14PresentFactorsIS0_EiiPS0_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111tttp_kernelILi3ELi4EfEEvPKT1_PKiPKhxi14PresentFactorsIS0_EiiPS0_
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 40 registers, 1024 bytes smem, 400 bytes cmem[0]
+== tttp_bf16.cu
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111tttp_kernelILi3ELi4E13__nv_bfloat16EEvPKT1_PKiPKhxi14PresentFactorsIS0_EiiPS0_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_111tttp_kernelILi3ELi4E13__nv_bfloat16EEvPKT1_PKiPKhxi14PresentFactorsIS0_EiiPS0_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, 0 bytes smem, 400 bytes cmem[0]
 """
 
 
@@ -196,11 +201,14 @@ def test_footprint_shared_memory_of_known_shapes(family, r, smem):
 def test_footprint_registers_from_the_build_log(monkeypatch):
     usage = _build.resource_usage(PTXAS_LOG)
     assert usage == {
-        ("bucket_rows_kernel", (16, 0, 2)): {
+        ("bucket_rows_kernel", (16, 0, 2, "float32")): {
             "registers": 72, "smem": 0, "stack": 8, "spill_stores": 4,
             "spill_loads": 4},
-        ("tttp_kernel", (3, 4)): {
+        ("tttp_kernel", (3, 4, "float32")): {
             "registers": 40, "smem": 1024, "stack": 0, "spill_stores": 0,
+            "spill_loads": 0},
+        ("tttp_kernel", (3, 4, "bfloat16")): {
+            "registers": 38, "smem": 0, "stack": 0, "spill_stores": 0,
             "spill_loads": 0}}
     st, fs = _problem()
     geom = footprint.workload_geometry("mttkrp", st, fs, ktile.DEFAULT_TILE)
@@ -209,15 +217,21 @@ def test_footprint_registers_from_the_build_log(monkeypatch):
     monkeypatch.setattr(_build, "build_log", lambda: PTXAS_LOG)
     est = footprint.estimate_footprint("mttkrp", ktile.DEFAULT_TILE, geom)
     assert (est.registers, est.registers_from) == (72, "build log")
-    assert est.kernel == "bucket_rows_kernel<16, 0, 2>"
-    # 72 × 32 = 2304 registers a warp (nine 256-register units): 28 warps,
-    # 3 CTAs of 8 warps
-    assert est.blocks_per_sm == 65536 // (72 * 32) // 8
+    assert est.kernel == "bucket_rows_kernel<16, 0, 2, float32>"
+    # 72 × 32 = 2304 registers a warp (nine 256-register units): 7 warps
+    # in each of the 4 sub-partitions' 16384 registers, 28 warps, 3 CTAs of
+    # 8 warps
+    assert est.blocks_per_sm == 4 * (16384 // (72 * 32)) // 8
     t = KernelTile(per_thread=4)
     est = footprint.estimate_footprint(
         "tttp", t, footprint.workload_geometry("tttp", st, fs, t))
     assert (est.registers, est.static_smem, est.smem_bytes) == (40, 1024,
                                                                 1024)
+    # the bf16 instantiation has its own entry in the log
+    geom = footprint.workload_geometry(
+        "tttp", st.astype(torch.bfloat16), [f.bfloat16() for f in fs], t)
+    est = footprint.estimate_footprint("tttp", t, geom)
+    assert (est.registers, est.kernel) == (38, "tttp_kernel<3, 4, bfloat16>")
 
 
 def test_forced_prune_and_the_all_pruned_error(monkeypatch):

@@ -353,7 +353,7 @@ def test_kernel_tile_json_round_trip(tile):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(accum_dtype="bfloat16"), "Queue B item 1"),
+    (dict(accum_dtype="bfloat16"), "accumulate in float32 only"),
     (dict(threads=96 + 1), "multiple of 32"),
     (dict(threads=512), "multiple of 32"),
     (dict(per_thread=3), "per_thread"),
