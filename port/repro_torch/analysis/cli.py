@@ -16,7 +16,11 @@ codes: 0 clean, 1 findings, 2 usage):
 * ``--all``       everything above
 
 ``--corrupt PATH`` is the tripwire: it distorts one candidate path's output
-in the contract sweep, which must then fail.
+in the contract sweep, which must then fail. ``--pytree-module MOD`` runs
+the pytree pass over one more importable module too (its pytree
+registrations, PT001, and the cache-key types it declares in
+``CACHE_KEY_GRIDS``, PT002); ``--show-suppressed`` prints the suppressed
+findings.
 """
 from __future__ import annotations
 
@@ -44,10 +48,11 @@ def _repo_root(start: str) -> str:
 class Reporter:
     """Prints findings per pass and counts the blocking ones. Advisory
     findings (JS006) block only under ``strict``; suppressed ones are
-    counted."""
+    counted, and printed under ``show_suppressed``."""
 
-    def __init__(self, strict: bool):
+    def __init__(self, strict: bool, show_suppressed: bool = False):
         self.strict = strict
+        self.show_suppressed = show_suppressed
         self.failures = 0
 
     def __call__(self, pass_name: str, findings: List[Finding]) -> None:
@@ -63,6 +68,9 @@ class Reporter:
             print(f.format())
         for f in advisory:
             print("warning: " + f.format())
+        if self.show_suppressed:
+            for f in suppressed:
+                print("suppressed: " + f.format())
         self.failures += len(blocking)
         notes = []
         if advisory:
@@ -96,6 +104,11 @@ def main(argv=None) -> int:
     ap.add_argument("--corrupt", default=None, metavar="PATH",
                     help="distort this candidate path's output (self-test: "
                          "the sweep must then fail)")
+    ap.add_argument("--pytree-module", default=None, metavar="MOD",
+                    help="also run the pytree pass over this importable "
+                         "module (CACHE_KEY_GRIDS for PT002)")
+    ap.add_argument("--show-suppressed", action="store_true",
+                    help="print suppressed findings too")
     ap.add_argument("--strict-suppressions", action="store_true",
                     help="advisory findings (JS006 stale suppressions) "
                          "block the run")
@@ -113,7 +126,7 @@ def main(argv=None) -> int:
                      f"--device cpu to sweep the plain versions)")
 
     root = _repo_root(args.root)
-    report = Reporter(args.strict_suppressions)
+    report = Reporter(args.strict_suppressions, args.show_suppressed)
 
     if args.lint:
         from repro_torch.analysis import lint
@@ -131,7 +144,7 @@ def main(argv=None) -> int:
 
     if args.pytrees:
         from repro_torch.analysis import pytree_check
-        report("pytrees", pytree_check.run(root))
+        report("pytrees", pytree_check.run(root, args.pytree_module))
 
     if args.deadcode:
         from repro_torch.analysis import deadcode

@@ -45,7 +45,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -93,16 +94,18 @@ class Case:
 
 class StandInGroup:
     """A process group of ``n`` ranks as far as the stand-in collectives
-    read one: its size."""
+    read one: its size, and the mesh axis it spans (``axis``, which the
+    sharding interpreter reads to know what a collective reduces)."""
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, axis: Optional[str] = None):
         self.n = n
+        self.axis = axis
 
     def size(self) -> int:
         return self.n
 
     def __repr__(self) -> str:
-        return f"StandInGroup({self.n})"
+        return f"StandInGroup({self.n}, axis={self.axis!r})"
 
 
 class _Done:
@@ -147,21 +150,42 @@ _STANDINS = {
 }
 
 
+# held while module attributes are rebound for one thread's check (the
+# stand-in collectives here, the sharding interpreter's kernel leaves):
+# two checks at once would restore each other's bindings out of order
+STANDIN_LOCK = threading.RLock()
+
+
+def _on_thread(owner: int, standin: Callable, real: Callable) -> Callable:
+    """``standin`` on thread ``owner``, ``real`` on every other thread."""
+    def call(*args, **kwargs):
+        fn = standin if threading.get_ident() == owner else real
+        return fn(*args, **kwargs)
+    return call
+
+
 @contextlib.contextmanager
-def collective_standin() -> Iterator[None]:
-    """Bind stand-ins for every collective of ``core/collectives.py``: each
-    returns its output at the shapes its group's size gives, and no
-    process group is needed or touched. The real functions come back on
-    exit."""
+def collective_standin(wrap: Optional[Callable] = None) -> Iterator[None]:
+    """Bind stand-ins for every collective of ``core/collectives.py`` on the
+    calling thread: each returns its output at the shapes its group's size
+    gives, and no process group is needed or touched. Other threads reach
+    the real collectives meanwhile, and a second check waits for the first
+    (``STANDIN_LOCK``). ``wrap(name, fn)``, if given, returns what is bound
+    in place of stand-in ``fn`` (the sharding interpreter observes each
+    collective this way). The real functions come back on exit."""
     from repro_torch.core import collectives as coll
-    saved = {name: getattr(coll, name) for name in _STANDINS}
-    try:
-        for name, fn in _STANDINS.items():
-            setattr(coll, name, fn)
-        yield
-    finally:
-        for name, fn in saved.items():
-            setattr(coll, name, fn)
+    owner = threading.get_ident()
+    with STANDIN_LOCK:
+        saved = {name: getattr(coll, name) for name in _STANDINS}
+        try:
+            for name, fn in _STANDINS.items():
+                setattr(coll, name, _on_thread(
+                    owner, fn if wrap is None else wrap(name, fn),
+                    saved[name]))
+            yield
+        finally:
+            for name, fn in saved.items():
+                setattr(coll, name, fn)
 
 
 def standin_ctx(dist):
@@ -177,8 +201,10 @@ def standin_ctx(dist):
     return AxisCtx(data="data" if data else None,
                    model="model" if model else None, sizes=sizes,
                    coords=tuple((n, 0) for n, _ in sizes),
-                   groups=(StandInGroup(dist.data_size) if data else None,
-                           StandInGroup(dist.model_size) if model else None))
+                   groups=(StandInGroup(dist.data_size, "data")
+                           if data else None,
+                           StandInGroup(dist.model_size, "model")
+                           if model else None))
 
 
 # ---------------------------------------------------------------------------

@@ -77,10 +77,14 @@ RULES: Dict[str, str] = {
     "PT001": "pytree-registration",
     "PT002": "static-arg-aliasing",
     "DC001": "dead-code",
-    # the SPMD passes (repro_torch.analysis.spmd): the collective-matching
-    # AST lint (SP1xx) and the shared-memory certifier (SP2xx); SP0xx is
-    # the sharding interpreter's, not ported
+    # the SPMD passes (repro_torch.analysis.spmd): the sharding interpreter
+    # (SP0xx), the collective-matching AST lint (SP1xx) and the
+    # shared-memory certifier (SP2xx)
     "SP000": "spmd-analysis-error",
+    "SP001": "partial-sum-escape",
+    "SP002": "redundant-psum",
+    "SP003": "wrong-replication-state",
+    "SP004": "sharded-dim-gather",
     "SP101": "collective-divergence",
     "SP102": "collective-under-unreduced-predicate",
     "SP103": "collective-outside-ctx",

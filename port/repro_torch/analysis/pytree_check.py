@@ -30,7 +30,7 @@ from __future__ import annotations
 import ast
 import dataclasses as dc
 import os
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from repro_torch.analysis.lint import Finding, iter_py_files
 
@@ -142,13 +142,15 @@ def _static_type_grids():
     return grids
 
 
-def check_static_args() -> List[Finding]:
+def check_static_args(grids=None) -> List[Finding]:
+    """PT002 over ``grids`` (default: the port's cache-key types)."""
     findings: List[Finding] = []
 
     def bad(msg):
         findings.append(Finding("static-args", 0, 0, "PT002", msg))
 
-    for name, base, variants in _static_type_grids():
+    for name, base, variants in (_static_type_grids() if grids is None
+                                 else grids):
         try:
             h0 = hash(base)
         except TypeError as e:
@@ -177,6 +179,28 @@ def check_static_args() -> List[Finding]:
     return findings
 
 
-def run(repo_root: str = ".") -> List[Finding]:
+def check_module(name: str) -> List[Finding]:
+    """The pass over one importable module (``--pytree-module``, the
+    reference's extra module of exemplars): PT001 for any pytree
+    registration in its source, and PT002 over the cache-key types it
+    declares in ``CACHE_KEY_GRIDS`` (``(typename, base, [(field,
+    variant), ...])``, as :func:`_static_type_grids` gives the port's)."""
+    import importlib
+    mod = importlib.import_module(name)
+    path = getattr(mod, "__file__", None)
+    findings: List[Finding] = []
+    if path is not None:
+        findings += check_pytrees(path)
+    grids = getattr(mod, "CACHE_KEY_GRIDS", None)
+    if grids:
+        findings += check_static_args(list(grids))
+    return findings
+
+
+def run(repo_root: str = ".",
+        extra_module: Optional[str] = None) -> List[Finding]:
     src_root = os.path.join(repo_root, "port", "repro_torch")
-    return check_pytrees(src_root) + check_static_args()
+    findings = check_pytrees(src_root) + check_static_args()
+    if extra_module is not None:
+        findings += check_module(extra_module)
+    return findings

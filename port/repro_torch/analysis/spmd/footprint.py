@@ -3,8 +3,10 @@ lattices: the port's counterpart of the JAX package's
 ``analysis/spmd/vmem.py``.
 
 Prices every tile of ``planner.tuner.LATTICES``, for each kernel family and
-in both element types the kernels are instantiated for (float32,
-bfloat16), with the footprint model of ``kernels/footprint.py``, and
+in every element type the kernels are instantiated for (float32,
+bfloat16, float64: shared memory at 8 bytes a value and the f64
+instantiations' registers for the last), with the footprint model of
+``kernels/footprint.py``, and
 reports ``SP201`` for a tile that does not fit the card: more dynamic
 shared memory than a CTA may opt in to, more than 255 registers a thread,
 or more registers than an SM holds for one CTA. The model backs the
@@ -36,7 +38,7 @@ from repro_torch.kernels.footprint import (KernelGeometry,
                                            estimate_footprint,
                                            smem_budget_bytes)
 
-DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 
 # (label, dims, rank, COO capacity, bucket capacity at block_rows 8)
 _PORT_LAYOUTS: Tuple[Tuple[str, Tuple[int, ...], int, int, int], ...] = (
@@ -73,8 +75,8 @@ def _geometries(family: str, layouts, block_rows: int, dtype
 def run(paper_scale: bool = False) -> List[Finding]:
     """SP201 for each lattice tile of each family and element type that
     does not fit, at the tier's layouts, against the shared-memory budget
-    of ``kernels.footprint.smem_budget_bytes`` (``REPRO_SMEM_KB`` lowers
-    it)."""
+    of ``kernels.footprint.smem_budget_bytes`` (``REPRO_SMEM_KB``, which
+    the CLI's ``--budget-mb`` sets, overrides it)."""
     from repro_torch.planner import tuner
 
     budget = smem_budget_bytes()

@@ -7,11 +7,13 @@
 //   z[n]    = v[n] * sum_s KR[n,s] * x[idx[n,mode], s]    (fused matvec)
 //   Y[i, :] = sum_{n: idx[n,mode] = i} z[n] * KR[n, :]
 //
-// Element types: T is float or __nv_bfloat16 (common.cuh), instantiated by
-// mttkrp.cu / cg_matvec.cu (float) and mttkrp_bf16.cu / cg_matvec_bf16.cu
-// (bf16). Values, factor rows and x are read as T and converted to float in
-// registers; KR, z, the dot product and every sum are float, the shared
-// accumulator is float (scatter_rows.cuh), and the output is written as T.
+// Element types: T is float, __nv_bfloat16 or double (common.cuh),
+// instantiated by mttkrp.cu / cg_matvec.cu (float), mttkrp_bf16.cu /
+// cg_matvec_bf16.cu (bf16) and mttkrp_f64.cu / cg_matvec_f64.cu (double).
+// Values, factor rows and x are read as T and converted in registers to the
+// accumulator A = Acc<T>::type (float for float and bf16, double for
+// double); KR, z, the dot product, every sum and the shared accumulator
+// (scatter_rows.cuh) are A, and the output is written as T.
 //
 // Layout the launcher takes: the factors and x as rows of RS elements of T,
 // RS a multiple of Elem<T>::VEC (16 bytes) holding R columns and RS - R zero
@@ -21,7 +23,7 @@
 //
 // One CTA per bucket. It owns the bucket's block_rows output rows in shared
 // memory (scatter_rows.cuh), so no global atomics; FUSED also holds the
-// bucket's block_rows rows of x there as floats, loaded once before the
+// bucket's block_rows rows of x there as A, loaded once before the
 // capacity loop (a slot's x row is its key's row). The CTA walks the
 // capacity axis SLOTS * blockDim.x slots per step, SLOTS slots per thread at
 // a stride of blockDim.x, so every slot stream is read coalesced and each
@@ -30,7 +32,8 @@
 // kernels/tile.py), SLOTS a template depth instantiated for 1, 2 and 4. A
 // slot's factor rows are gathered as 16-byte vectors with the R loop
 // unrolled at compile time (RS / VEC loads per row, each one float4 of
-// floats or two of bf16); padding slots carry index 0, so their gathers stay
+// floats, two of bf16 or one double2 of doubles: register vectors of W
+// columns, Acc<T>::V); padding slots carry index 0, so their gathers stay
 // in bounds and their key adds them nowhere. Offsets are 64-bit.
 #pragma once
 
@@ -48,29 +51,32 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
     long long C, int nd, int mode, FactorTable<T> f,
     const T* __restrict__ x, long long x_rows, int R, int RS,
     int block_rows, T* __restrict__ out) {
-  constexpr int QMAX = RMAX / 4;
-  constexpr int VQ = Elem<T>::VEC / 4;  // float4s of one vector load
+  using A = typename Acc<T>::type;
+  using V = typename Acc<T>::V;
+  constexpr int W = Acc<T>::W;           // columns of one register vector
+  constexpr int QMAX = RMAX / W;
+  constexpr int VQ = Elem<T>::VEC / W;   // register vectors of one load
   extern __shared__ float4 smem[];
-  float* ys = reinterpret_cast<float*>(smem);  // (block_rows, RS) sums
-  float* xs = ys + block_rows * RS;            // (block_rows, RS) x rows
+  A* ys = reinterpret_cast<A*>(smem);    // (block_rows, RS) sums
+  A* xs = ys + block_rows * RS;          // (block_rows, RS) x rows
   const long long b = blockIdx.x;
-  const int nq = RS / 4;
+  const int nq = RS / W;
   const int n = block_rows * RS;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    ys[i] = 0.f;
+    ys[i] = A(0);
     if (FUSED) {
       const long long row = b * block_rows + i / RS;
-      xs[i] = row < x_rows ? to_float(x[row * RS + i % RS]) : 0.f;
+      xs[i] = row < x_rows ? to_acc(x[row * RS + i % RS]) : A(0);
     }
   }
   __syncthreads();
 
-  RowSum<QMAX> sum;
+  RowSum<QMAX, A> sum;
   sum.reset(block_rows);
   const long long step = static_cast<long long>(SLOTS) * blockDim.x;
   for (long long c0 = 0; c0 < C; c0 += step) {
     int key[SLOTS];
-    float w[SLOTS];
+    A w[SLOTS];
     int ix[SLOTS][MAX_ND];
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
@@ -80,18 +86,18 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
       const int lr = in ? local_row[slot] : 0;
       const bool ok = in && valid[slot];
       key[s] = ok ? lr : block_rows;
-      w[s] = in ? to_float(values[slot]) : 0.f;
+      w[s] = in ? to_acc(values[slot]) : A(0);
 #pragma unroll
       for (int d = 0; d < MAX_ND; ++d) {
         ix[s][d] = in && d < nd ? indices[slot * nd + d] : 0;
       }
     }
-    float4 kr[SLOTS][QMAX];
+    V kr[SLOTS][QMAX];
 #pragma unroll
     for (int s = 0; s < SLOTS; ++s) {
-      const float k0 = FUSED ? 1.f : w[s];
+      const A k0 = FUSED ? A(1) : w[s];
 #pragma unroll
-      for (int q = 0; q < QMAX; ++q) kr[s][q] = make_float4(k0, k0, k0, k0);
+      for (int q = 0; q < QMAX; ++q) kr[s][q] = splat(k0);
     }
 #pragma unroll
     for (int d = 0; d < MAX_ND; ++d) {
@@ -102,8 +108,8 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
 #pragma unroll
           for (int q = 0; q < QMAX; q += VQ) {
             if (q < nq) {
-              float4 v[VQ];
-              load_vec(a + 4 * q, v);
+              V v[VQ];
+              load_vec(a + W * q, v);
 #pragma unroll
               for (int k = 0; k < VQ; ++k) kr[s][q + k] = kr[s][q + k] * v[k];
             }
@@ -115,25 +121,19 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) bucket_rows_kernel(
     for (int s = 0; s < SLOTS; ++s) {
       sum.visit(key[s], block_rows, ys, RS, nq);
       if (key[s] < block_rows) {
-        float z = 1.f;
+        A z = A(1);
         if (FUSED) {
-          const float4* xr = reinterpret_cast<const float4*>(xs + key[s] * RS);
-          float dot = 0.f;
+          const V* xr = reinterpret_cast<const V*>(xs + key[s] * RS);
+          A dot = A(0);
 #pragma unroll
           for (int q = 0; q < QMAX; ++q) {
-            if (q < nq) {
-              const float4 xv = xr[q];
-              dot = fmaf(kr[s][q].x, xv.x, dot);
-              dot = fmaf(kr[s][q].y, xv.y, dot);
-              dot = fmaf(kr[s][q].z, xv.z, dot);
-              dot = fmaf(kr[s][q].w, xv.w, dot);
-            }
+            if (q < nq) dot = dot_v(kr[s][q], xr[q], dot);
           }
           z = w[s] * dot;
         }
 #pragma unroll
         for (int q = 0; q < QMAX; ++q) {
-          if (q < nq) sum.acc[q] = fma4(z, kr[s][q], sum.acc[q]);
+          if (q < nq) sum.acc[q] = fma_v(z, kr[s][q], sum.acc[q]);
         }
       }
     }
@@ -155,7 +155,8 @@ cudaError_t launch_tile(const void* values, const void* indices,
                         long long x_rows,
                         int R, int RS, int block_rows, void* out, int threads,
                         cudaStream_t stream) {
-  const size_t smem = sizeof(float) * block_rows * RS * (FUSED ? 2 : 1);
+  const size_t smem = sizeof(typename Acc<T>::type) * block_rows * RS *
+                      (FUSED ? 2 : 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         bucket_rows_kernel<RMAX, FUSED, SLOTS, T>,

@@ -5,14 +5,17 @@
 // nd pointers (NULL for an absent factor) and copy it into a FactorTable, so
 // a launch needs no device allocation and no copy.
 //
-// Element types: every kernel is instantiated for float and __nv_bfloat16
-// inputs (the T of its template). A bf16 kernel reads bf16 values, factor
-// rows and x from device memory, converts them to float in registers with
-// the intrinsics, multiplies and accumulates in float, and writes its output
-// in bf16 (the reference's Pallas kernels: Hadamard chain, f32 accumulator,
-// result cast back to the input dtype). Rows of either type are read as
-// 16-byte vectors: 4 floats or 8 bf16 values per load (Elem<T>::VEC), so a
-// row's padded stride RS is a multiple of VEC.
+// Element types: every kernel is instantiated for float, __nv_bfloat16 and
+// double inputs (the T of its template). A bf16 kernel reads bf16 values,
+// factor rows and x from device memory, converts them to float in registers
+// with the intrinsics, multiplies and accumulates in float, and writes its
+// output in bf16 (the reference's Pallas kernels: Hadamard chain, f32
+// accumulator, result cast back to the input dtype). A double kernel reads,
+// multiplies, accumulates and writes double (the reference's float64
+// operands with accum_dtype "float64"). Acc<T> names the accumulator: float
+// for float and bf16, double for double. Rows of every type are read as
+// 16-byte vectors: 4 floats, 8 bf16 values or 2 doubles per load
+// (Elem<T>::VEC), so a row's padded stride RS is a multiple of VEC.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,6 +48,26 @@ template <>
 struct Elem<__nv_bfloat16> {
   static constexpr int VEC = 8;
 };
+template <>
+struct Elem<double> {
+  static constexpr int VEC = 2;
+};
+
+// The accumulator of T (`type`) and the register vector the kernels
+// multiply and sum rows in (`V`, W columns of `type`): a float4 for float
+// and bf16 inputs, a double2, one 16-byte load, for double.
+template <typename T>
+struct Acc {
+  using type = float;
+  using V = float4;
+  static constexpr int W = 4;
+};
+template <>
+struct Acc<double> {
+  using type = double;
+  using V = double2;
+  static constexpr int W = 2;
+};
 
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15u) == 0;
@@ -52,6 +75,50 @@ inline bool aligned16(const void* p) {
 
 __device__ __forceinline__ float4 operator*(float4 a, float4 b) {
   return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ double2 operator*(double2 a, double2 b) {
+  return make_double2(a.x * b.x, a.y * b.y);
+}
+
+// A register vector with every column `a`.
+__device__ __forceinline__ float4 splat(float a) {
+  return make_float4(a, a, a, a);
+}
+__device__ __forceinline__ double2 splat(double a) {
+  return make_double2(a, a);
+}
+
+// acc + s * a, column by column.
+__device__ __forceinline__ float4 fma_v(float s, float4 a, float4 acc) {
+  return make_float4(fmaf(s, a.x, acc.x), fmaf(s, a.y, acc.y),
+                     fmaf(s, a.z, acc.z), fmaf(s, a.w, acc.w));
+}
+__device__ __forceinline__ double2 fma_v(double s, double2 a, double2 acc) {
+  return make_double2(fma(s, a.x, acc.x), fma(s, a.y, acc.y));
+}
+
+// dot + <a, b>, the columns added in order.
+__device__ __forceinline__ float dot_v(float4 a, float4 b, float dot) {
+  dot = fmaf(a.x, b.x, dot);
+  dot = fmaf(a.y, b.y, dot);
+  dot = fmaf(a.z, b.z, dot);
+  return fmaf(a.w, b.w, dot);
+}
+__device__ __forceinline__ double dot_v(double2 a, double2 b, double dot) {
+  dot = fma(a.x, b.x, dot);
+  return fma(a.y, b.y, dot);
+}
+
+// The sum of the first `left` columns of v (all of them when left >= W).
+__device__ __forceinline__ float sum_first(float4 v, int left) {
+  if (left < 4) v.w = 0.f;
+  if (left < 3) v.z = 0.f;
+  if (left < 2) v.y = 0.f;
+  return (v.x + v.y) + (v.z + v.w);
+}
+__device__ __forceinline__ double sum_first(double2 v, int left) {
+  if (left < 2) v.y = 0.0;
+  return v.x + v.y;
 }
 
 template <typename T>
@@ -63,15 +130,18 @@ inline FactorTable<T> make_factor_table(void* const* ptrs, int nd) {
   return t;
 }
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+// An element as its accumulator type (Acc<T>::type).
+__device__ __forceinline__ float to_acc(float v) { return v; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ double to_acc(double v) { return v; }
 
 __device__ __forceinline__ void store_elem(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store_elem(double* p, double v) { *p = v; }
 
 // The two bf16 values packed in a 32-bit word, as floats (the lower half
 // holds the lower column).
@@ -83,7 +153,8 @@ __device__ __forceinline__ float2 bf16x2_to_float2(unsigned u) {
 }
 
 // The 16 bytes at p (16-byte aligned, read-only for the kernel's life) as
-// float4s of 4 columns each: one for float, two for bf16.
+// register vectors (Acc<T>::V): one float4 for float, two for bf16, one
+// double2 for double.
 __device__ __forceinline__ void load_vec(const float* p, float4* v) {
   v[0] = __ldg(reinterpret_cast<const float4*>(p));
 }
@@ -93,6 +164,9 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float4* v) {
   const float2 c = bf16x2_to_float2(u.z), d = bf16x2_to_float2(u.w);
   v[0] = make_float4(a.x, a.y, b.x, b.y);
   v[1] = make_float4(c.x, c.y, d.x, d.y);
+}
+__device__ __forceinline__ void load_vec(const double* p, double2* v) {
+  v[0] = __ldg(reinterpret_cast<const double2*>(p));
 }
 
 // What cudaFuncGetAttributes and the occupancy calculator say of the kernel

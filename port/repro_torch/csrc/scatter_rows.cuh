@@ -4,11 +4,13 @@
 // primitive (one-hot MXU product or segmented cumsum over a monotone key).
 //
 // A CTA owns one bucket's block_rows output rows and accumulates them in
-// shared memory (row stride RS floats); no other CTA writes those rows, so
-// no global atomics are needed. The key of a slot is local_row for a valid
-// slot and block_rows (matches no output row) otherwise, the reference's
-// where(valid, local_row, block_rows): padding slots carry local_row 0, so
-// keying on local_row alone would scatter them into row 0.
+// shared memory (row stride RS values of the accumulator type A: float for
+// float and bf16 inputs, double for double, common.cuh Acc); no other CTA
+// writes those rows, so no global atomics are needed. The key of a slot
+// is local_row for a valid slot and block_rows (matches no output row)
+// otherwise, the reference's where(valid, local_row, block_rows): padding
+// slots carry local_row 0, so keying on local_row alone would scatter them
+// into row 0.
 //
 // Running sums: each thread keeps the sum of its own slots' contributions in
 // registers (RowSum::acc) together with the row they belong to (RowSum::row)
@@ -31,12 +33,8 @@
 
 constexpr unsigned FULL_MASK = 0xffffffffu;
 
-__device__ __forceinline__ float4 fma4(float s, float4 a, float4 acc) {
-  return make_float4(fmaf(s, a.x, acc.x), fmaf(s, a.y, acc.y),
-                     fmaf(s, a.z, acc.z), fmaf(s, a.w, acc.w));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+template <typename A>
+__device__ __forceinline__ A warp_sum(A v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
     v += __shfl_xor_sync(FULL_MASK, v, off);
@@ -44,69 +42,83 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One thread's running sum over the (rows, RS) shared accumulator `ys`; the
-// first nq = RS / 4 of its QMAX float4s are live.
-template <int QMAX>
+// The warp's sum of each column of v.
+__device__ __forceinline__ float4 warp_sum_v(float4 a) {
+  const float sx = warp_sum(a.x), sy = warp_sum(a.y);
+  const float sz = warp_sum(a.z), sw = warp_sum(a.w);
+  return make_float4(sx, sy, sz, sw);
+}
+__device__ __forceinline__ double2 warp_sum_v(double2 a) {
+  const double sx = warp_sum(a.x), sy = warp_sum(a.y);
+  return make_double2(sx, sy);
+}
+
+// Shared-memory atomic adds of v's columns to dst[0..W).
+__device__ __forceinline__ void atomic_add_v(float* dst, float4 v) {
+  atomicAdd(dst, v.x);
+  atomicAdd(dst + 1, v.y);
+  atomicAdd(dst + 2, v.z);
+  atomicAdd(dst + 3, v.w);
+}
+__device__ __forceinline__ void atomic_add_v(double* dst, double2 v) {
+  atomicAdd(dst, v.x);
+  atomicAdd(dst + 1, v.y);
+}
+
+// One thread's running sum over the (rows, RS) shared accumulator `ys` of
+// A (float or double); the first nq = RS / W of its QMAX register vectors
+// (Acc<A>::V, W columns each) are live.
+template <int QMAX, typename A>
 struct RowSum {
-  float4 acc[QMAX];
+  using V = typename Acc<A>::V;
+  static constexpr int W = Acc<A>::W;
+  V acc[QMAX];
   int row;  // the row acc belongs to, or block_rows before the first slot
 
   __device__ __forceinline__ void reset(int block_rows) {
     row = block_rows;
 #pragma unroll
-    for (int q = 0; q < QMAX; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int q = 0; q < QMAX; ++q) acc[q] = splat(A(0));
   }
 
   // Add acc to shared row `row` in the lanes where `on` holds.
-  __device__ __forceinline__ void flush(bool on, float* ys, int RS, int nq) {
+  __device__ __forceinline__ void flush(bool on, A* ys, int RS, int nq) {
     const unsigned m = __ballot_sync(FULL_MASK, on);
     if (m == 0) return;
     const int lead = __ffs(m) - 1;
     const int r0 = __shfl_sync(FULL_MASK, row, lead);
     if (__all_sync(FULL_MASK, !on || row == r0)) {
       const bool lane_lead = (threadIdx.x & 31) == lead;
-      float* dst = ys + r0 * RS;
+      A* dst = ys + r0 * RS;
 #pragma unroll
       for (int q = 0; q < QMAX; ++q) {
         if (q < nq) {
-          const float4 a = on ? acc[q] : make_float4(0.f, 0.f, 0.f, 0.f);
-          const float sx = warp_sum(a.x), sy = warp_sum(a.y);
-          const float sz = warp_sum(a.z), sw = warp_sum(a.w);
-          if (lane_lead) {
-            atomicAdd(dst + 4 * q, sx);
-            atomicAdd(dst + 4 * q + 1, sy);
-            atomicAdd(dst + 4 * q + 2, sz);
-            atomicAdd(dst + 4 * q + 3, sw);
-          }
+          const V s = warp_sum_v(on ? acc[q] : splat(A(0)));
+          if (lane_lead) atomic_add_v(dst + W * q, s);
         }
       }
     } else if (on) {
-      float* dst = ys + row * RS;
+      A* dst = ys + row * RS;
 #pragma unroll
       for (int q = 0; q < QMAX; ++q) {
-        if (q < nq) {
-          atomicAdd(dst + 4 * q, acc[q].x);
-          atomicAdd(dst + 4 * q + 1, acc[q].y);
-          atomicAdd(dst + 4 * q + 2, acc[q].z);
-          atomicAdd(dst + 4 * q + 3, acc[q].w);
-        }
+        if (q < nq) atomic_add_v(dst + W * q, acc[q]);
       }
     }
   }
 
   // Before a slot with `key` is added: flush and restart on a new row.
-  __device__ __forceinline__ void visit(int key, int block_rows, float* ys,
+  __device__ __forceinline__ void visit(int key, int block_rows, A* ys,
                                         int RS, int nq) {
     const bool change = key < block_rows && key != row;
     flush(change && row < block_rows, ys, RS, nq);
     if (change) {
       row = key;
 #pragma unroll
-      for (int q = 0; q < QMAX; ++q) acc[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < QMAX; ++q) acc[q] = splat(A(0));
     }
   }
 
-  __device__ __forceinline__ void finish(int block_rows, float* ys, int RS,
+  __device__ __forceinline__ void finish(int block_rows, A* ys, int RS,
                                          int nq) {
     flush(row < block_rows, ys, RS, nq);
   }

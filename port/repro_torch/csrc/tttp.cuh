@@ -2,41 +2,46 @@
 //   out[n] = valid[n] ? values[n] * sum_r prod_{d present} A_d[idx[n,d], r] : 0
 //
 // Replaces src/repro/kernels/tttp.py:tttp_pallas (body _tttp_kernel). The
-// kernel template, instantiated per element type by tttp.cu (float) and
-// tttp_bf16.cu (__nv_bfloat16), one nvcc process each.
+// kernel template, instantiated per element type by tttp.cu (float),
+// tttp_bf16.cu (__nv_bfloat16) and tttp_f64.cu (double), one nvcc process
+// each.
 //
 // What bounds it: bytes. Per nonzero it reads one value, one valid byte and
 // nd int32 indices and writes one value, (2 * e + 1 + 4*nd) bytes of HBM
-// traffic for an element of e bytes (4 float, 2 bf16), against R*n_present
-// multiply-adds. The gathered factor rows come from L2 while the factors fit
-// there (a factor of 20000 rows of 12 floats is 1 MB; L2 holds 50 MB): a
-// 48-byte float row spans two 32-byte sectors, so at the main path's size
-// the gathers move about 15 GB of L2 sectors per call, nine times the HBM
-// bytes above, and that traffic is what the kernel works against. A bf16 row
-// of R = 10 padded to 16 values is 32 bytes, one aligned sector: half the
-// sectors.
+// traffic for an element of e bytes (4 float, 2 bf16, 8 double), against
+// R*n_present multiply-adds. The gathered factor rows come from L2 while the
+// factors fit there (a factor of 20000 rows of 12 floats is 1 MB; L2 holds
+// 50 MB): a 48-byte float row spans two 32-byte sectors, so at the main
+// path's size the gathers move about 15 GB of L2 sectors per call, nine
+// times the HBM bytes above, and that traffic is what the kernel works
+// against. A bf16 row of R = 10 padded to 16 values is 32 bytes, one aligned
+// sector: half the sectors. A double row of R = 10 is 80 bytes, three
+// sectors at most row offsets.
 //
 // What the design does about it: the factors arrive as rows of RS elements,
 // RS a multiple of Elem<T>::VEC (16 bytes), at 16-byte-aligned addresses
 // (zero-padded copies), so a row is read as 16-byte vector loads, not R
-// scalar loads; a bf16 vector is converted to two float4s in registers and
-// every product and sum is taken in float. Each thread takes NZ nonzeros per
-// step at a stride of blockDim.x, so every value, valid, index and output
-// stream is read coalesced, and it issues all of the step's index loads,
-// then all of its row loads for QB float4 columns, before the products:
-// NZ * n_present * QB / VQ loads in flight per thread. R is walked QB
-// float4s at a time into one scalar sum per nonzero, so there is no bound on
-// R and no register array over it; the columns past R in the last float4
-// are masked. A padding slot (valid false) issues no gathers and writes 0.
-// No shared memory and no atomics, so the result does not depend on
-// scheduling. Offsets are 64-bit.
+// scalar loads. A float load is one float4; a bf16 load is converted to two
+// float4s in registers and every product and sum is taken in float; a
+// double load is one double2 and every product and sum is double (the
+// register vectors V of W columns, Acc<T> in common.cuh). Each thread takes
+// NZ nonzeros per step at a stride of blockDim.x, so every value, valid,
+// index and output stream is read coalesced, and it issues all of the
+// step's index loads, then all of its row loads for QB register vectors,
+// before the products: NZ * n_present * QB / VQ loads in flight per thread.
+// R is walked QB vectors at a time into one scalar sum per nonzero, so there
+// is no bound on R and no register array over it; the columns past R in the
+// last vector are masked. A padding slot (valid false) issues no gathers and
+// writes 0. No shared memory and no atomics, so the result does not depend
+// on scheduling. Offsets are 64-bit.
 #pragma once
 
 #include "common.cuh"
 
 namespace {
 
-// float4 columns of a row gathered per pass over R (16 columns)
+// register vectors of a row gathered per pass over R (16 float columns, 8
+// double ones)
 constexpr int QB = 4;
 
 // The present factors only, with the index column each is gathered by, so
@@ -55,8 +60,11 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
     const T* __restrict__ values, const int* __restrict__ indices,
     const unsigned char* __restrict__ valid, long long m, int nd,
     PresentFactors<T> f, int R, int RS, T* __restrict__ out) {
-  // float4 units of a vector load, and of R rounded up to whole vectors
-  constexpr int VQ = Elem<T>::VEC / 4;
+  using A = typename Acc<T>::type;
+  using V = typename Acc<T>::V;
+  constexpr int W = Acc<T>::W;
+  // register vectors of a load, and of R rounded up to whole loads
+  constexpr int VQ = Elem<T>::VEC / W;
   const int nq = (R + Elem<T>::VEC - 1) / Elem<T>::VEC * VQ;
   const long long step = static_cast<long long>(NZ) * blockDim.x;
   for (long long n0 = blockIdx.x * step + threadIdx.x; n0 < m;
@@ -73,26 +81,26 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
         row[s][j] = static_cast<long long>(i) * RS;
       }
     }
-    float acc[NZ];
+    A acc[NZ];
 #pragma unroll
-    for (int s = 0; s < NZ; ++s) acc[s] = 0.f;
+    for (int s = 0; s < NZ; ++s) acc[s] = A(0);
     for (int q0 = 0; q0 < nq; q0 += QB) {
-      float4 p[NZ][QB];
+      V p[NZ][QB];
 #pragma unroll
       for (int s = 0; s < NZ; ++s) {
 #pragma unroll
-        for (int q = 0; q < QB; ++q) p[s][q] = make_float4(1.f, 1.f, 1.f, 1.f);
+        for (int q = 0; q < QB; ++q) p[s][q] = splat(A(1));
       }
 #pragma unroll
       for (int j = 0; j < NP; ++j) {
 #pragma unroll
         for (int s = 0; s < NZ; ++s) {
-          const T* a = f.p[j] + row[s][j] + 4 * q0;
+          const T* a = f.p[j] + row[s][j] + W * q0;
 #pragma unroll
           for (int q = 0; q < QB; q += VQ) {
             if (ok[s] && q0 + q < nq) {
-              float4 v[VQ];
-              load_vec(a + 4 * q, v);
+              V v[VQ];
+              load_vec(a + W * q, v);
 #pragma unroll
               for (int k = 0; k < VQ; ++k) p[s][q + k] = p[s][q + k] * v[k];
             }
@@ -103,14 +111,8 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
       for (int s = 0; s < NZ; ++s) {
 #pragma unroll
         for (int q = 0; q < QB; ++q) {
-          const int left = R - 4 * (q0 + q);  // columns of this float4 < R
-          if (left > 0) {
-            float4 v = p[s][q];
-            if (left < 4) v.w = 0.f;
-            if (left < 3) v.z = 0.f;
-            if (left < 2) v.y = 0.f;
-            acc[s] += (v.x + v.y) + (v.z + v.w);
-          }
+          const int left = R - W * (q0 + q);  // columns of this vector < R
+          if (left > 0) acc[s] += sum_first(p[s][q], left);
         }
       }
     }
@@ -118,7 +120,7 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
     for (int s = 0; s < NZ; ++s) {
       const long long n = n0 + s * blockDim.x;
       if (n < m) {
-        store_elem(out + n, ok[s] ? to_float(values[n]) * acc[s] : 0.f);
+        store_elem(out + n, ok[s] ? to_acc(values[n]) * acc[s] : A(0));
       }
     }
   }
@@ -168,10 +170,10 @@ const void* tttp_entry(int per_thread) {
   }
 }
 
-// The launcher of tttp.cu and tttp_bf16.cu. values, the factor rows and out
-// are of T. factors: nd pointers (NULL for an absent factor, at least one
-// present), each to rows of RS elements whose first R columns are the
-// factor's, 16-byte aligned, with RS a multiple of VEC and at least R
+// The launcher of tttp.cu, tttp_bf16.cu and tttp_f64.cu. values, the factor
+// rows and out are of T. factors: nd pointers (NULL for an absent factor, at
+// least one present), each to rows of RS elements whose first R columns are
+// the factor's, 16-byte aligned, with RS a multiple of VEC and at least R
 // rounded up to VEC.
 template <typename T>
 int launch_tttp(const void* values, const void* indices, const void* valid,

@@ -11,12 +11,13 @@ import: the first kernel launch builds.
 Every C entry point launches one kernel on the given stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0. A launch
 takes its threads per CTA and per-thread depth from a
-``kernels.tile.KernelTile``. Each kernel is instantiated for float32 and
-bfloat16 operands (:data:`KERNEL_DTYPES`), with one C entry point per
-element type (:func:`entry`); the bf16 instantiations have sources of
-their own (``csrc/*_bf16.cu``), so nvcc builds them in parallel with the
-float ones. :func:`operand_dtype` checks that a launch's floating operands
-share one of those types. :func:`resource_usage` reads the compiler's
+``kernels.tile.KernelTile``. Each kernel is instantiated for float32,
+bfloat16 and float64 operands (:data:`KERNEL_DTYPES`), with one C entry
+point per element type (:func:`entry`); the bf16 and float64
+instantiations have sources of their own (``csrc/*_bf16.cu``,
+``csrc/*_f64.cu``), so nvcc builds them in parallel with the float ones.
+:func:`operand_dtype` checks that a launch's floating operands share one
+of those types. :func:`resource_usage` reads the compiler's
 registers and spills per instantiation from the build log, and
 :func:`kernel_attributes` asks the card (``cudaFuncGetAttributes`` and the
 occupancy calculator) for the same instantiation.
@@ -49,9 +50,11 @@ _PTRS = ctypes.POINTER(ctypes.c_void_p)
 # the element types the kernels are instantiated for: the suffix of their C
 # entry points, the dtype code of repro_kernel_attributes, and the name the
 # build log's mangled template argument gives
-KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MANGLED_DTYPES = {"f": "float32", "__nv_bfloat16": "bfloat16"}
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                 torch.float64: "f64"}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+_MANGLED_DTYPES = {"f": "float32", "__nv_bfloat16": "bfloat16",
+                   "d": "float64"}
 
 # C signatures of csrc/*.cu; every launcher returns a cudaError_t as int
 _TTTP = (_P, _P, _P, _L, _I, _PTRS, _I, _I, _P, _I, _I, _P)

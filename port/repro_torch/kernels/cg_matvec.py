@@ -8,14 +8,14 @@ per nonzero and used for both the TTTP half (``z[n] = ω[n]·⟨KR[n],
 x[i]⟩``, with the bucket's rows of ``x`` held in shared memory) and the
 MTTKRP half (``y[i] += z[n]·KR[n]``). The factors and ``x`` reach the
 kernel as zero-padded copies with a 16-byte row stride
-(``kernels.mttkrp.pad_rows``); like the values, they are all float32 or all
-bfloat16, the kernel's two instantiations (a bf16 launch sums in float32 and
-writes bf16). It takes R up to ``kernels.mttkrp.MAX_RANK``
-and refuses a wider one: ``kernels.ops.cg_matvec_bucketed`` runs wider R as
-TTTP then MTTKRP. The launch shape is a ``kernels.tile.KernelTile``.
-``launches`` counts the kernel's launches, ``launches_by_dtype`` splits them
-by element type, and ``last_launch`` holds the (threads, per_thread) of the
-last one.
+(``kernels.mttkrp.pad_rows``); like the values, they are all float32, all
+bfloat16 or all float64, the kernel's three instantiations (a bf16 launch
+sums in float32 and writes bf16, a float64 launch sums in float64). It
+takes R up to ``kernels.mttkrp.MAX_RANK`` and refuses a wider one:
+``kernels.ops.cg_matvec_bucketed`` runs wider R as TTTP then MTTKRP. The
+launch shape is a ``kernels.tile.KernelTile``. ``launches`` counts the
+kernel's launches, ``launches_by_dtype`` splits them by element type, and
+``last_launch`` holds the (threads, per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -29,7 +29,7 @@ from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
 launches = 0
-launches_by_dtype = {"float32": 0, "bfloat16": 0}
+launches_by_dtype = {"float32": 0, "bfloat16": 0, "float64": 0}
 last_launch = None
 
 
@@ -38,8 +38,8 @@ def cg_matvec_cuda(buckets: RowBlockBuckets,
                    x: torch.Tensor,
                    tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """``buckets.values`` hold the weights ω (the Ω indicator for ALS);
-    they, the factors and ``x`` share one element type, float32 or
-    bfloat16. Returns (nb·block_rows, R) in that type; callers slice to the
+    they, the factors and ``x`` share one element type, float32, bfloat16
+    or float64. Returns (nb·block_rows, R) in that type; callers slice to the
     true row count."""
     global launches, last_launch
     r = x.shape[1]

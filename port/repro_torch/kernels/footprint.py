@@ -6,11 +6,13 @@ What limits a CUDA launch is what one CTA holds on an SM, so this module
 prices that, per CTA, from a :class:`~repro_torch.kernels.tile.KernelTile`
 and the workload's geometry alone (no launch):
 
-* dynamic shared memory, exact: ``4 · block_rows · RS`` bytes for the
-  bucketed body's float output rows (``csrc/bucket_rows.cuh``), twice that
-  for the fused matvec (x's rows too, held as floats), RS the widest
-  launch's padded row in elements (R rounded up to a 16-byte vector, 4
-  floats or 8 bf16 values, at most 128); none for TTTP;
+* dynamic shared memory, exact: ``a · block_rows · RS`` bytes for the
+  bucketed body's output rows (``csrc/bucket_rows.cuh``), twice that for
+  the fused matvec (x's rows too), held in the accumulator type, ``a`` = 4
+  bytes (float, for float32 and bf16 operands) or 8 (double, for float64
+  ones), RS the widest launch's padded row in elements (R rounded up to a
+  16-byte vector, 4 floats, 8 bf16 values or 2 doubles, at most 128); none
+  for TTTP;
 * registers per thread and static shared memory: the compiler's counts
   for the instantiation the launch takes (its element type included),
   from the build log
@@ -98,12 +100,20 @@ def row_width(rank: int, dtype: torch.dtype = torch.float32) -> int:
     return padded_width(min(rank, MAX_RANK), dtype)
 
 
+def accum_bytes(dtype: torch.dtype) -> int:
+    """Bytes of one shared-memory value of the bucketed body on ``dtype``
+    operands: its accumulator, double for float64, float otherwise."""
+    return 8 if dtype == torch.float64 else 4
+
+
 def dynamic_smem_bytes(block_rows: int, rank: int, fused: bool,
                        dtype: torch.dtype = torch.float32) -> int:
     """Dynamic shared memory of one bucketed CTA on ``dtype`` operands: its
-    ``block_rows`` output rows of RS floats, and as many rows of x when
-    ``fused`` (x is held as floats whatever its input type)."""
-    return 4 * block_rows * row_width(rank, dtype) * (2 if fused else 1)
+    ``block_rows`` output rows of RS accumulator values, and as many rows of
+    x when ``fused`` (x is held in the accumulator type whatever its input
+    type)."""
+    return (accum_bytes(dtype) * block_rows * row_width(rank, dtype)
+            * (2 if fused else 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,7 +223,8 @@ def estimate_footprint(family: str, tile: KernelTile, geom: KernelGeometry,
     launched, variant, key = instantiation(family, geom, tile)
     parts: List[Tuple[str, int]] = []
     if launched != "tttp":
-        rows = 4 * geom.block_rows * row_width(geom.rank, geom.dtype)
+        rows = (accum_bytes(geom.dtype) * geom.block_rows
+                * row_width(geom.rank, geom.dtype))
         parts.append(("output rows", rows))
         if launched == "cg_matvec":
             parts.append(("x rows", rows))

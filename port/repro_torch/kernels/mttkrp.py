@@ -5,11 +5,12 @@ shares with the fused CG matvec (``kernels/cg_matvec.py``).
 Both run one kernel body (``csrc/bucket_rows.cuh``): one CTA per CCSR
 bucket, which sums the bucket's ``block_rows`` output rows in shared memory
 from per-thread running sums (``csrc/scatter_rows.cuh``). The body is
-instantiated for float32 and bfloat16 operands: a bf16 launch reads bf16
-values, factor rows and x, accumulates in float32 and writes bf16. The
-kernel gathers factor rows as 16-byte loads, so the wrappers hand it copies
-of the factors padded with zero columns to a row stride of 16 bytes, 4
-floats or 8 bf16 values (:func:`pad_rows`); the zero columns add exact
+instantiated for float32, bfloat16 and float64 operands: a bf16 launch
+reads bf16 values, factor rows and x, accumulates in float32 and writes
+bf16; a float64 launch reads, accumulates and writes float64. The kernel
+gathers factor rows as 16-byte loads, so the wrappers hand it copies of the
+factors padded with zero columns to a row stride of 16 bytes, 4 floats, 8
+bf16 values or 2 doubles (:func:`pad_rows`); the zero columns add exact
 zeros. One launch covers at
 most ``MAX_RANK`` columns, since the body keeps a Khatri-Rao row and a
 running sum in registers: the MTTKRP takes any R as one launch per column
@@ -41,22 +42,23 @@ MAX_RANK = 128
 ROW_BYTES = 16
 
 launches = 0
-launches_by_dtype = {"float32": 0, "bfloat16": 0}
+launches_by_dtype = {"float32": 0, "bfloat16": 0, "float64": 0}
 last_launch = None
 
 
 def padded_width(r: int, dtype: torch.dtype) -> int:
     """RS, the row stride in elements the kernels take for R columns: R
-    rounded up to one 16-byte vector load (4 float32, 8 bfloat16)."""
+    rounded up to one 16-byte vector load (4 float32, 8 bfloat16, 2
+    float64)."""
     return round_up(r, ROW_BYTES // dtype.itemsize)
 
 
 def pad_rows(t: torch.Tensor) -> torch.Tensor:
     """``t`` (rows, R) as rows of :func:`padded_width` elements (16 bytes a
-    vector: R rounded up to 4 floats or 8 bf16 values): a contiguous copy
-    whose columns past R are zero, at a 16-byte-aligned address, so every
-    row starts on a 16-byte boundary. ``t`` itself when it already is
-    one."""
+    vector: R rounded up to 4 floats, 8 bf16 values or 2 doubles): a
+    contiguous copy whose columns past R are zero, at a 16-byte-aligned
+    address, so every row starts on a 16-byte boundary. ``t`` itself when
+    it already is one."""
     r = t.shape[1]
     width = padded_width(r, t.dtype)
     if width == r and t.is_contiguous() and t.data_ptr() % 16 == 0:
@@ -67,8 +69,8 @@ def pad_rows(t: torch.Tensor) -> torch.Tensor:
 def column_tiles(r: int) -> List[Tuple[int, int]]:
     """``(first column, width)`` of the launches that cover R columns: tiles
     of ``MAX_RANK`` columns from column 0 and the rest, so every tile starts
-    at a multiple of 4 floats (16 bytes) of a padded row. One tile, (0, R),
-    for R ≤ ``MAX_RANK``."""
+    at a multiple of 16 bytes of a padded row in every element type. One
+    tile, (0, R), for R ≤ ``MAX_RANK``."""
     return [(c0, min(MAX_RANK, r - c0)) for c0 in range(0, r, MAX_RANK)]
 
 
@@ -76,10 +78,10 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
                   x: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
     """Check the bucket arrays, the factors and ``x`` (given for the fused
     matvec) for launches over ``r`` columns, all of one element type
-    (float32 or bfloat16), and the shared-memory rows of the widest launch
-    (its (block_rows, padded width) float sums, and as many rows of x when
-    fused). Returns the factor table the kernels take: None at
-    ``buckets.mode`` and for absent factors."""
+    (float32, bfloat16 or float64), and the shared-memory rows of the
+    widest launch (its (block_rows, padded width) sums in the accumulator
+    type, and as many rows of x when fused). Returns the factor table the
+    kernels take: None at ``buckets.mode`` and for absent factors."""
     dev = buckets.values.device
     nb, c = buckets.values.shape
     nd = buckets.indices.shape[-1]
@@ -130,6 +132,7 @@ def launch_bucketed(name: str, buckets: RowBlockBuckets,
     nb, c = buckets.values.shape
     dev = buckets.values.device
     dt = buckets.values.dtype
+    tile.check_operands(dt)
     out = torch.empty(nb * buckets.block_rows, r, dtype=dt, device=dev)
     if nb == 0:
         return out
@@ -153,8 +156,8 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
                 factors: Sequence[Optional[torch.Tensor]],
                 tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """Bucketed MTTKRP; factors at ``buckets.mode`` and None factors are
-    skipped. Values and factors share one element type, float32 or
-    bfloat16. One launch per column tile (:func:`column_tiles`), the tiles'
+    skipped. Values and factors share one element type, float32, bfloat16
+    or float64. One launch per column tile (:func:`column_tiles`), the tiles'
     outputs joined by columns. Returns (nb·block_rows, R) in the operands'
     type; callers slice to ``shape[mode]`` rows."""
     global launches, last_launch

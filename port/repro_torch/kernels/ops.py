@@ -8,13 +8,14 @@ tensor goes to the plain PyTorch version in ``kernels.ref``. There is no
 switch and no fallback between the two.
 
 Element types follow the reference (``kernels/ops.py:_out_dtype``): the
-kernels take float32 or bfloat16 operands, keep the Hadamard chain and every
-sum in float32 and write their operands' type; a result has the promoted
-type of the values (x for the Gram matvec) and the factors, on either
-device. Mixed inputs are promoted on the card before the launch, over
-every floating operand (``torch.result_type``'s rule, the reference's
-``jnp.result_type``): each kernel takes one element type. A type neither
-instantiation takes (float64, float16) raises on the card. Results keep
+kernels take float32, bfloat16 or float64 operands, keep the Hadamard chain
+and every sum in float32 for the first two and in float64 for the third
+(the reference's ``accum_dtype``), and write their operands' type; a result
+has the promoted type of the values (x for the Gram matvec) and the
+factors, on either device. Mixed inputs are promoted on the card before the
+launch, over every floating operand (``torch.result_type``'s rule, the
+reference's ``jnp.result_type``): each kernel takes one element type. A
+type no instantiation takes (float16) raises on the card. Results keep
 the reference's shapes: the kernels write padded outputs (``nb·block_rows``
 rows for the bucketed ones), which are sliced back to ``num_rows``. The
 reference also padded the nonzero and capacity axes to its Pallas tile
@@ -121,8 +122,9 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
 
 def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
     """Per kernel, its launches split by element type (``float32``,
-    ``bfloat16``), zeroed with the counts: what shows which instantiation
-    ran. Eager launches only: a graph replay adds to the totals alone."""
+    ``bfloat16``, ``float64``), zeroed with the counts: what shows which
+    instantiation ran. Eager launches only: a graph replay adds to the
+    totals alone."""
     return {name: dict(mod.launches_by_dtype)
             for name, mod in _MODULES.items()}
 

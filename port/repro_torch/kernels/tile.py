@@ -12,9 +12,18 @@ A :class:`KernelTile` carries what the CUDA kernels really take at launch:
                   ``SLOTS`` (``csrc/bucket_rows.cuh``) and TTTP's ``NZ``
                   (``csrc/tttp.cu``), template depths compiled for
                   ``PER_THREAD_DEPTHS``;
-``accum_dtype`` — the accumulator, float32 only: the kernels accumulate
-                  in float32 for float32 and bfloat16 inputs alike, as
-                  every path of the reference does.
+``accum_dtype`` — the accumulator, ``"float32"`` or ``"float64"`` (the
+                  reference's ``KernelTile.accum_dtype`` takes both):
+                  float32 and bfloat16 operands accumulate in float32,
+                  float64 operands in float64, in the float64
+                  instantiation (``csrc/*_f64.cu``) whichever the tile
+                  names. A tile asking for float64 over float32 or
+                  bfloat16 operands raises (:meth:`KernelTile.check_operands`):
+                  no instantiation widens a narrower input's sums, and
+                  running it in float32 would answer another question.
+                  So the field never changes a launch, and it takes no
+                  part in a tile's equality or hash: two tiles that
+                  differ only there are one launch and one cache key.
 
 Tiles are frozen, hashable and round-trip through JSON (the on-disk plan
 cache, ``planner.tuner``). The process-wide table below is what
@@ -46,6 +55,8 @@ MAX_THREADS = 256
 PER_THREAD_DEPTHS = (1, 2, 4)
 
 _SCHEDULES = ("onehot", "segmented")
+# the accumulators a tile may name, and their short labels
+ACCUM_DTYPES = {"float32": "f32", "float64": "f64"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,15 +65,15 @@ class KernelTile:
     block_rows: int = 8
     threads: int = 256
     per_thread: int = 2
-    accum_dtype: str = "float32"
+    accum_dtype: str = dataclasses.field(default="float32", compare=False)
 
     def __post_init__(self):
-        if self.accum_dtype != "float32":
+        if self.accum_dtype not in ACCUM_DTYPES:
             raise ValueError(
-                f"accum_dtype {self.accum_dtype!r}: the CUDA kernels "
-                f"accumulate in float32 only, for float32 and bfloat16 "
-                f"inputs alike (no path of the reference uses another "
-                f"accumulator)")
+                f"accum_dtype {self.accum_dtype!r} not in "
+                f"{tuple(ACCUM_DTYPES)}: the CUDA kernels accumulate in "
+                f"float32 only for float32 and bfloat16 operands, and in "
+                f"float64 for float64 operands")
         if self.block_rows < 1:
             raise ValueError("block_rows must be positive")
         if self.threads < 32 or self.threads % 32 or \
@@ -74,8 +85,22 @@ class KernelTile:
                              f"{PER_THREAD_DEPTHS}")
 
     def short(self) -> str:
-        """Compact label for spans and plan records: br8.t256.p2.f32"""
-        return f"br{self.block_rows}.t{self.threads}.p{self.per_thread}.f32"
+        """Compact label for spans and plan records: br8.t256.p2.f32
+        (``.f64`` for a float64 accumulator)"""
+        return (f"br{self.block_rows}.t{self.threads}.p{self.per_thread}"
+                f".{ACCUM_DTYPES[self.accum_dtype]}")
+
+    def check_operands(self, dtype: torch.dtype) -> None:
+        """Raise unless a launch on ``dtype`` operands can keep this tile's
+        accumulator: float64 over float32 or bfloat16 operands is refused
+        (a float32-operand, float64-accumulator instantiation is ROADMAP.md
+        Queue B item 7); float64 operands always sum in float64."""
+        if self.accum_dtype == "float64" and dtype != torch.float64:
+            raise ValueError(
+                f"tile {self.short()} asks for a float64 accumulator over "
+                f"{dtype} operands: the kernels sum {dtype} in float32 and "
+                f"have no wider instantiation for it (ROADMAP.md Queue B "
+                f"item 7); pass float64 operands or a float32 tile")
 
     def to_json(self) -> Dict:
         return dataclasses.asdict(self)

@@ -4,11 +4,12 @@ reference's ``kernels/tttp.py:tttp_pallas``.
 ``out[n] = valid[n] ? values[n] · Σ_r Π_{d present} A_d[indices[n, d], r]
 : 0``, no scatter. The kernel reads the valid mask itself and gathers factor
 rows as 16-byte loads, so the wrapper hands it zero-padded copies of the
-factors with a row stride of 16 bytes, 4 floats or 8 bf16 values
-(``kernels.mttkrp.pad_rows``). It takes any R, and values and factors of
-one element type, float32 or bfloat16: a bf16 launch reads bf16, sums in
-float32 and writes bf16. The launch shape (threads
-per CTA, nonzeros per thread) is a ``kernels.tile.KernelTile``.
+factors with a row stride of 16 bytes, 4 floats, 8 bf16 values or 2
+doubles (``kernels.mttkrp.pad_rows``). It takes any R, and values and
+factors of one element type, float32, bfloat16 or float64: a bf16 launch
+reads bf16, sums in float32 and writes bf16; a float64 launch sums and
+writes float64. The launch shape (threads per CTA, nonzeros per thread) is
+a ``kernels.tile.KernelTile``.
 ``launches`` counts the kernel's launches, ``launches_by_dtype`` splits them
 by element type, and ``last_launch`` holds the (threads, per_thread) of the
 last one.
@@ -24,7 +25,7 @@ from repro_torch.kernels.mttkrp import pad_rows, padded_width
 from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 
 launches = 0
-launches_by_dtype = {"float32": 0, "bfloat16": 0}
+launches_by_dtype = {"float32": 0, "bfloat16": 0, "float64": 0}
 last_launch = None
 
 
@@ -34,7 +35,8 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
               tile: KernelTile = DEFAULT_TILE) -> torch.Tensor:
     """``values (m,)``, ``indices (m, nd)`` int32, ``valid (m,)`` bool,
     ``factors[d]`` ``(shape[d], R)`` or None, all contiguous on one CUDA
-    device, values and factors of one element type (float32 or bfloat16).
+    device, values and factors of one element type (float32, bfloat16 or
+    float64).
     Returns (m,) in that type, 0 where ``valid`` is false."""
     global launches, last_launch
     dev = values.device
@@ -49,6 +51,7 @@ def tttp_cuda(values: torch.Tensor, indices: torch.Tensor,
     r = present[0].shape[1]
     dt = _build.operand_dtype(
         values=values, **{f"factor {d}": f for d, f in enumerate(factors)})
+    tile.check_operands(dt)
     _build.check_operand("values", values, dt, dev, (m,))
     _build.check_operand("indices", indices, torch.int32, dev)
     _build.check_operand("valid", valid, torch.bool, dev, (m,))

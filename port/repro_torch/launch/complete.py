@@ -104,6 +104,13 @@ from repro_torch.runtime import RestartableLoop
 ALGORITHMS = ("als", "ccd", "ccd_tttp", "sgd", "gcp", "ggn")
 # a rank that stops answering fails the others' collectives after this
 DIST_TIMEOUT = datetime.timedelta(seconds=300)
+# flag sets under which a ggn run computes the same iterates and sums them
+# in another float32 order (bucket granularity, matvec route): the LOCAL
+# envelope a mesh run's objectives are read against
+GGN_SUMMATION_ORDERS = ((), ("--matvec-path", "tttp_mttkrp"),
+                        ("--block-rows", "4"), ("--block-rows", "16"),
+                        ("--matvec-path", "tttp_mttkrp", "--block-rows",
+                         "16"))
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -16,7 +16,7 @@ process). The report goes to ``--out``,
 or to stdout without it: it never writes ``PERF.md``, which is kept by
 hand. Times from a CPU run describe the CPU, not the card.
 
-Left out until ``ROADMAP.md`` Queue A item 6: the reference's ``dryrun``
+Left out until ``ROADMAP.md`` Queue A item 8: the reference's ``dryrun``
 and ``roofline`` record tables of pod dry runs. :func:`trajectory_tables`
 reads the port's own ``BENCH_torch_*.json`` only (the reference's
 ``BENCH_*.json`` hold CPU and TPU times).

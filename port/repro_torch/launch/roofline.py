@@ -18,9 +18,11 @@ so the terms come from two places:
 :func:`bound` turns bytes and operations into the least time (ms) the card
 could take, and what sets it. The machine constants are the NVIDIA H100
 SXM data sheet's (``obs.profile.Machine`` reads them, overridable by
-``REPRO_PEAK_FLOPS``, ``REPRO_HBM_BW`` and ``REPRO_LINK_BW``). The
-reference's ``model_flops`` and ``active_params`` (its LM cells) wait with
-``ROADMAP.md`` Queue A item 6.
+``REPRO_PEAK_FLOPS``, ``REPRO_PEAK_FLOPS_F64``, ``REPRO_HBM_BW`` and
+``REPRO_LINK_BW``): a float64 kernel's operations go over the FP64 peak,
+every other kernel's over the fp32 one (bf16 operands are summed in
+float32). The reference's ``model_flops`` and ``active_params`` (its LM
+cells) wait with ``ROADMAP.md`` Queue A item 8.
 """
 from __future__ import annotations
 
@@ -30,9 +32,10 @@ import torch
 
 from repro_torch.obs.profile import Machine
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3, NVLink
-# per direction
+# NVIDIA H100 SXM data sheet: fp32 and FP64 outside the tensor cores,
+# HBM3, NVLink per direction
 PEAK_FLOPS = 67e12
+PEAK_FLOPS_F64 = 34e12
 HBM_BW = 3.35e12
 LINK_BW = 450e9
 
@@ -49,19 +52,23 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def bound(n_bytes: float, n_ops: float, machine: Machine = None):
+def bound(n_bytes: float, n_ops: float, machine: Machine = None,
+          elem_bytes: int = 4):
     """Least time (ms) for the work and what sets it: bytes over the memory
-    rate or operations over the peak rate, the larger."""
+    rate or operations over the peak rate for the operands' type (the FP64
+    peak for 8-byte elements, the fp32 one otherwise), the larger."""
     machine = machine or Machine.from_env()
+    peak = machine.peak_flops_f64 if elem_bytes == 8 else machine.peak_flops
     t_bytes = n_bytes / machine.hbm_bw * 1e3
-    t_ops = n_ops / machine.peak_flops * 1e3
+    t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def gather_sector_bytes(n_rows: int, r: int, elem_bytes: int = 4) -> float:
     """L2 sector bytes that gathering ``n_rows`` factor rows takes when each
     row is read whole at the kernels' padded stride (R rounded up to a
-    16-byte vector of ``elem_bytes`` elements: 4 floats, 8 bf16 values):
+    16-byte vector of ``elem_bytes`` elements: 4 floats, 8 bf16 values, 2
+    doubles):
     the 32-byte sectors a row spans, averaged over the row offsets, which
     repeat every 8 rows."""
     per_vec = 16 // elem_bytes
@@ -86,8 +93,9 @@ def kernel_terms(family: str, *, slots: int, nd: int, rank: int,
     value, valid and indices per slot (a bucket view as flat slots) and
     writes one value per slot; the bucketed kernels also read local_row and
     write (out_rows, R). Values, factors, x and the output are priced at
-    ``elem_bytes`` an element (4 float32, 2 bfloat16: the kernels read and
-    write their operands' type); indices, valid and local_row as they are.
+    ``elem_bytes`` an element (4 float32, 2 bfloat16, 8 float64: the
+    kernels read and write their operands' type); indices, valid and
+    local_row as they are.
     ``valid_only`` counts the valid entries' bytes alone (the function
     needs no more; skewed and serving layouts pad heavily). Operations
     count, per valid entry, R multiplies per factor (TTTP), plus R

@@ -14,10 +14,11 @@ achieved-against-peak fractions:
   running at the machine model's bound)
 
 The machine constants default to the NVIDIA H100 SXM data sheet (fp32 67
-TFLOP/s outside the tensor cores, HBM3 3.35 TB/s, NVLink 450 GB/s each
-way); ``REPRO_PEAK_FLOPS``, ``REPRO_HBM_BW`` and ``REPRO_LINK_BW`` override
-them. The fractions compare only within one machine model: the report
-records the constants used. A CPU run's fractions against the card's
+TFLOP/s and FP64 34 TFLOP/s outside the tensor cores, HBM3 3.35 TB/s,
+NVLink 450 GB/s each way); ``REPRO_PEAK_FLOPS``, ``REPRO_PEAK_FLOPS_F64``,
+``REPRO_HBM_BW`` and ``REPRO_LINK_BW`` override them. The fractions
+compare only within one machine model: the report records the constants
+used. A CPU run's fractions against the card's
 constants describe no device.
 """
 from __future__ import annotations
@@ -37,6 +38,8 @@ class Machine:
     peak_flops: float
     hbm_bw: float
     link_bw: float
+    # the H100 SXM data sheet's FP64 rate without the tensor cores
+    peak_flops_f64: float = 34e12
 
     @classmethod
     def from_env(cls) -> "Machine":
@@ -44,6 +47,8 @@ class Machine:
         return cls(
             peak_flops=float(os.environ.get("REPRO_PEAK_FLOPS",
                                             rl.PEAK_FLOPS)),
+            peak_flops_f64=float(os.environ.get("REPRO_PEAK_FLOPS_F64",
+                                                rl.PEAK_FLOPS_F64)),
             hbm_bw=float(os.environ.get("REPRO_HBM_BW", rl.HBM_BW)),
             link_bw=float(os.environ.get("REPRO_LINK_BW", rl.LINK_BW)))
 

@@ -138,15 +138,15 @@ def plan_contraction(expr: str, operands: Sequence,
     (``analysis.contracts.certify_candidates``): every candidate path runs
     once on these operands and must give the same output structure, shape,
     dtype and device, else ``PlanContractError``; a cached plan is returned
-    as it is. ``validate_spmd=True`` (the reference's sharding interpreter
-    over jaxprs, SP001–SP004) is refused with a message, never ignored: its
-    torch counterpart is ``ROADMAP.md`` Queue A item 6.
+    as it is. ``validate_spmd=True`` certifies a NEW plan's collective
+    schedule before it enters the cache
+    (``analysis.spmd.sharding.certify_plan``): every candidate path runs
+    once on these operands under the sharding interpreter, with stand-in
+    collectives over the ctx's axis sizes, and must leave no partial sum
+    unreduced, psum nothing twice and gather no global rows from a
+    row-sharded factor, else ``SpmdContractError``; a LOCAL call has
+    nothing to certify, and a cached plan is returned as it is.
     """
-    if validate_spmd:
-        raise NotImplementedError(
-            "validate_spmd=True: the sharding interpreter (SP001-SP004, an "
-            "abstract interpreter over the program's collectives) is "
-            "ROADMAP.md Queue A item 6, not ported yet")
     ctx = ctx if ctx is not None else LOCAL
     config = config if config is not None else default_config()
     # the axis SIZES go into the key beside the ctx's names
@@ -169,6 +169,9 @@ def plan_contraction(expr: str, operands: Sequence,
         # here, not at the top: the analysis package imports the planner
         from repro_torch.analysis.contracts import certify_candidates
         certify_candidates(ir, candidates, operands, ctx, config)
+    if validate_spmd:
+        from repro_torch.analysis.spmd.sharding import certify_plan
+        certify_plan(ir, candidates, operands, ctx, config)
     if path is not None:
         # a forced path makes autotuning moot: the plan is final
         if path not in candidates:

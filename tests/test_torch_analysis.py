@@ -401,11 +401,20 @@ class TestValidateHook:
             ir, [c.path for c in pcost.rank_paths(ir)], ops, LOCAL,
             default_config())
 
-    def test_validate_spmd_names_its_roadmap_item(self):
-        from repro_torch.planner.plan import plan_contraction
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            plan_contraction("ijk,jr,kr->ir", self._operands(),
-                             validate_spmd=True)
+    def test_validate_spmd_certifies_a_new_plan(self):
+        """``validate_spmd=True`` runs the sharding interpreter over every
+        candidate of a distributed call before its plan is cached (a LOCAL
+        call has nothing to certify)."""
+        from repro_torch.core.distributed import AxisCtx
+        from repro_torch.planner import cost as pcost
+        from repro_torch.planner.plan import (clear_plan_cache,
+                                              plan_contraction)
+        clear_plan_cache()
+        ctx = AxisCtx(data="data", sizes=(("data", 2),))
+        plan = plan_contraction("ijk,jr,kr->ir", self._operands(), ctx=ctx,
+                                validate_spmd=True)
+        assert plan.path in pcost.candidate_paths(plan.ir)
+        assert plan.ir.dist is not None and plan.ir.dist.data_size == 2
 
 
 # ---------------------------------------------------------------------------
@@ -461,6 +470,32 @@ class TestPytrees:
         findings = pytree_check.check_static_args()
         assert findings and all(f.rule == "PT002" for f in findings)
         assert any("EQUAL" in f.message for f in findings)
+
+    def test_pytree_module_flag_checks_one_more_module(self, tmp_path,
+                                                       monkeypatch, capsys):
+        """``--pytree-module MOD``: PT001 over the module's source and
+        PT002 over the cache-key types it declares in CACHE_KEY_GRIDS."""
+        (tmp_path / "extra_keys.py").write_text(
+            "import dataclasses\n"
+            "from torch.utils import _pytree as pytree\n"
+            "def register():  # seen by the AST pass, never run\n"
+            "    pytree.register_pytree_node(complex, None, None)\n"
+            "@dataclasses.dataclass(frozen=True, eq=False)\n"
+            "class Key:\n"
+            "    name: str = 'a'\n"
+            "    size: int = 1\n"
+            "    def __eq__(self, other):\n"
+            "        return self.name == other.name\n"
+            "    def __hash__(self):\n"
+            "        return hash(self.name)\n"
+            "CACHE_KEY_GRIDS = [('Key', Key(), [('size', Key(size=2))])]\n")
+        monkeypatch.syspath_prepend(str(tmp_path))
+        rules = sorted(f.rule for f in pytree_check.check_module(
+            "extra_keys"))
+        assert rules == ["PT001", "PT002"]
+        assert cli_main(["--pytrees", "--root", REPO, "--pytree-module",
+                         "extra_keys"]) == 1
+        assert "[pytrees] 2 finding(s)" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------

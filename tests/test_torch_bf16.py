@@ -167,15 +167,18 @@ def test_operand_dtype_takes_one_kernel_type():
     assert _build.operand_dtype(values=f32) == torch.float32
     with pytest.raises(TypeError, match="one element type"):
         _build.operand_dtype(values=f32, f=b16)
-    with pytest.raises(TypeError, match="float64"):
-        _build.operand_dtype(values=f32.double())
+    # float64 has its own instantiation; float16 none
+    assert _build.operand_dtype(values=f32.double(),
+                                f=f32.double()) == torch.float64
+    with pytest.raises(TypeError, match="float16"):
+        _build.operand_dtype(values=f32.half())
     assert _build.entry("tttp", torch.bfloat16) == "repro_tttp_bf16"
     assert _build.entry("cg_matvec_bucketed", torch.float32) == \
         "repro_cg_matvec_bucketed_f32"
     assert set(_build.SIGNATURES) >= {
         f"repro_{k}_{s}" for k in ("tttp", "mttkrp_bucketed",
                                    "cg_matvec_bucketed")
-        for s in ("f32", "bf16")}
+        for s in ("f32", "bf16", "f64")}
 
 
 def test_bound_and_gathers_are_priced_by_dtype():

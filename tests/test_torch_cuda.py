@@ -255,18 +255,62 @@ def test_bf16_kernels_match_plain_versions(dev, r, sort_mode):
             mode, 8)[:st.shape[mode]], **BF16_TOL)
     by_dtype = kops.launch_counts_by_dtype()
     wide = r > kmttkrp.MAX_RANK
-    assert by_dtype["tttp"] == {"float32": 0, "bfloat16": 1 + 2 * wide}
+    assert by_dtype["tttp"] == {"float32": 0, "bfloat16": 1 + 2 * wide,
+                                "float64": 0}
     assert by_dtype["mttkrp"] == {"float32": 0,
-                                  "bfloat16": 2 * (1 + wide) * (1 + wide)}
+                                  "bfloat16": 2 * (1 + wide) * (1 + wide),
+                                  "float64": 0}
     assert by_dtype["cg_matvec"] == {"float32": 0,
-                                     "bfloat16": 0 if wide else 2}
+                                     "bfloat16": 0 if wide else 2,
+                                     "float64": 0}
+
+
+def _held_f64(got, want):
+    """chip_smoke.py phase 2's float64 limit: rtol 1e-10 plus 1e-12 of the
+    largest plain entry (only the order of the shared atomics differs)."""
+    assert got.dtype == torch.float64 and got.shape == want.shape
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    assert bool((err <= 1e-10 * want.abs() + 1e-12 * scale).all()), \
+        f"max |kernel - plain| {float(err.max()):.3e}, max |plain| {scale}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [3, 10, 160])
+def test_f64_kernels_match_plain_versions(dev, r):
+    """The float64 instantiations against their plain versions in float64
+    on the same inputs, at phase 2's tolerance; the per-dtype counts show
+    float64 launches only."""
+    st, fs = _problem(dev, 11, (60, 40, 30), 3000, r)
+    s64, f64 = st.astype(torch.float64), [f.double() for f in fs]
+    kops.reset_launch_counts()
+    _held_f64(kops.tttp_values(s64, f64),
+              kref.tttp_ref(s64.values, st.indices, st.valid, f64))
+    om = s64.with_values(torch.ones_like(s64.values))
+    for mode in (0, 2):
+        bk, bo = s64.row_buckets(mode, 8), om.row_buckets(mode, 8)
+        part = [None if d == mode else f for d, f in enumerate(f64)]
+        _held_f64(kops.mttkrp_bucketed(bk, part), kref.mttkrp_bucketed_ref(
+            bk.values, bk.indices, bk.local_row, part, mode,
+            8)[:st.shape[mode]])
+        x = f64[mode]
+        _held_f64(kops.cg_matvec_bucketed(bo, f64, x),
+                  kref.cg_matvec_bucketed_ref(
+                      bo.values, bo.indices, bo.local_row, f64, x, mode,
+                      8)[:st.shape[mode]])
+    by_dtype = kops.launch_counts_by_dtype()
+    wide = r > kmttkrp.MAX_RANK
+    for k, c in by_dtype.items():
+        assert c["float32"] == 0 and c["bfloat16"] == 0, k
+        assert c["float64"] > 0 or (k == "cg_matvec" and wide), k
 
 
 @pytest.mark.cuda
 def test_mixed_inputs_promote_before_the_launch(dev):
     """Mixed float32 and bf16 operands run the promoted type's kernel (the
     reference's rule), and the result takes the reference's dtype: the
-    matvec's weights stay out of it. float64 is refused."""
+    matvec's weights stay out of it. float64 runs its own instantiation;
+    float16 is refused."""
     st, fs = _problem(dev, 8, (40, 24, 12), 800, 10)
     f16 = [f.bfloat16() for f in fs]
     kops.reset_launch_counts()
@@ -275,12 +319,15 @@ def test_mixed_inputs_promote_before_the_launch(dev):
     bo = st.with_values(torch.ones_like(st.values)).row_buckets(0, 8)
     out = kops.cg_matvec_bucketed(bo, f16, f16[0])
     assert out.dtype == torch.bfloat16
-    assert kops.launch_counts_by_dtype()["tttp"] == {"float32": 1,
-                                                     "bfloat16": 0}
-    assert kops.launch_counts_by_dtype()["cg_matvec"] == {"float32": 1,
-                                                          "bfloat16": 0}
+    assert kops.launch_counts_by_dtype()["tttp"] == {
+        "float32": 1, "bfloat16": 0, "float64": 0}
+    assert kops.launch_counts_by_dtype()["cg_matvec"] == {
+        "float32": 1, "bfloat16": 0, "float64": 0}
+    out = kops.tttp_values(st.astype(torch.float64), fs)
+    assert out.dtype == torch.float64
+    assert kops.launch_counts_by_dtype()["tttp"]["float64"] == 1
     with pytest.raises(TypeError):
-        kops.tttp_values(st.astype(torch.float64), [f.double() for f in fs])
+        kops.tttp_values(st.astype(torch.float16), [f.half() for f in fs])
 
 
 @pytest.mark.cuda
@@ -888,3 +935,31 @@ def test_two_gloo_ranks_on_the_card_run_the_butterfly(dev, tmp_path_factory):
     for r in ranks:
         np.testing.assert_allclose(r["butterfly"], dense, rtol=1e-5,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_ggn_iteration_in_float64_on_card_matches_the_cpu():
+    """One GGN iteration (poisson_log, fused matvec) in float64 on the card
+    against the same iteration on the CPU's plain versions in float64: the
+    damping exactly and the factors within 1e-8 (the atomics' order is the
+    only difference); every launch a float64 one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (CUDA kernels have no CPU "
+                    "mode)")
+    st, fs = _problem(torch.device("cuda"), 5, (40, 30, 20), 4000, 6)
+    it = dict(cg_iters=10, joint_iters=6, precond_iters=4)
+    st64, fs64 = st.astype(torch.float64), [f.double() for f in fs]
+    kops.reset_launch_counts()
+    got = ggn.ggn_sweep(st64, ggn.ggn_init(fs64), losses.poisson_log, 1e-5,
+                        **it)
+    torch.cuda.synchronize()
+    for k, c in kops.launch_counts_by_dtype().items():
+        assert c["float64"] > 0 and c["float32"] == 0 and \
+            c["bfloat16"] == 0, k
+    cpu, cfs = _on_cpu(st, fs, torch.float64)
+    want = ggn.ggn_sweep(cpu, ggn.ggn_init(cfs), losses.poisson_log, 1e-5,
+                         **it)
+    assert float(got.damping) == float(want.damping)
+    for d, (g, w) in enumerate(zip(got.factors, want.factors)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-8, atol=1e-8,
+                                   msg=lambda m: f"factor {d}: {m}")

@@ -472,11 +472,30 @@ def test_autotune_pins_a_measured_winner():
     assert forced.path == "t_first" and not forced.autotuned
 
 
-@pytest.mark.parametrize("kw,item", [(dict(validate_spmd=True), "item 6")])
-def test_unported_options_raise_naming_their_item(kw, item):
+@pytest.mark.parametrize("fault", [None, "missing-psum"])
+def test_validate_spmd_certifies_before_caching(fault):
+    """validate_spmd=True runs the sharding interpreter over every
+    candidate of a distributed call before its plan is cached: a sound
+    schedule plans as without it; under a planted missing psum it raises
+    SP001 and caches nothing."""
+    from repro_torch.analysis.spmd import sharding
+    from repro_torch.core.distributed import AxisCtx
     st, v, w = _mttkrp_ops()
-    with pytest.raises(NotImplementedError, match=f"Queue A {item}"):
-        planner.plan_contraction("ijk,jr,kr->ir", (st, v, w), **kw)
+    ctx = AxisCtx(data="data", sizes=(("data", 2),))
+    planner.clear_plan_cache()
+    sharding.set_fault(fault)
+    try:
+        if fault is None:
+            plan = planner.plan_contraction("ijk,jr,kr->ir", (st, v, w),
+                                            ctx=ctx, validate_spmd=True)
+            assert plan.path in plan.candidates
+        else:
+            with pytest.raises(sharding.SpmdContractError, match="SP001"):
+                planner.plan_contraction("ijk,jr,kr->ir", (st, v, w),
+                                         ctx=ctx, validate_spmd=True)
+            assert planner.plan_cache_size() == 0
+    finally:
+        sharding.set_fault(None)
 
 
 def test_validate_certifies_a_clean_plan_and_refuses_a_corrupted_path():

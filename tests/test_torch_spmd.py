@@ -3,7 +3,8 @@ collective-matching lint (SP101–SP103) and the lattices' shared-memory and
 register certificate (SP201), after the JAX package's ``tests/test_spmd.py``
 where a torch meaning exists. The seeded-bug fixtures are strings written
 to ``tmp_path``; each must make the CLI report exactly its planted rule.
-The sharding interpreter (SP001–SP004) is not ported and is refused."""
+The sharding interpreter (SP001–SP004) has its own file,
+``tests/test_torch_sharding.py``; here only its CLI wiring."""
 import dataclasses
 import os
 import subprocess
@@ -103,13 +104,18 @@ class TestFixtures:
         assert spmd_main(["--fixture", path]) == 1
         assert planted in capsys.readouterr().out
 
-    def test_sharding_fixture_is_refused(self, tmp_path):
+    def test_sharding_fixture_goes_to_the_interpreter(self, tmp_path):
+        """A fixture with ``run`` and ``IN_STATES`` is the sharding
+        interpreter's: a data-sharded sum returned without an all-reduce
+        is a partial-sum escape."""
         from repro_torch.analysis.spmd.cli import check_fixture
         p = tmp_path / "spmd_missing_psum.py"
-        p.write_text("IN_STATES = ()\ndef run(x):\n    return x\n")
-        found = check_fixture(str(p))
-        assert rules(found) == ["SP000"]
-        assert "Queue A item 6" in found[0].message
+        p.write_text("import torch\nAXIS_ENV = (('data', 2),)\n"
+                     "ARGS = (torch.ones(8),)\n"
+                     "IN_STATES = ({'data': ('shard', 0)},)\n"
+                     "EXPECTED = {'data': 'rep'}\n"
+                     "def run(x):\n    return x.sum()\n")
+        assert rules(check_fixture(str(p))) == ["SP001"]
 
 
 # ---------------------------------------------------------------------------
@@ -264,13 +270,30 @@ class TestCli:
                           "--strict-suppressions"]) == 0
         out = capsys.readouterr().out
         assert "[collectives] 0 finding(s)" in out and "OK" in out
-        assert "Queue A item 6" in out
+        assert "[sharding] 0 finding(s)" in out
 
-    def test_sharding_is_refused_naming_its_item(self, capsys):
-        with pytest.raises(SystemExit) as e:
-            spmd_main(["--sharding"])
-        assert e.value.code == 2
-        assert "Queue A item 6" in capsys.readouterr().err
+    def test_sharding_runs_clean_and_show_suppressed_prints(self, capsys):
+        assert spmd_main(["--sharding", "--device", "cpu", "--orders",
+                          "3"]) == 0
+        assert "[sharding] 0 finding(s)" in capsys.readouterr().out
+        assert spmd_main(["--collectives", "--root", REPO,
+                          "--show-suppressed"]) == 0
+        assert "suppressed: " in capsys.readouterr().out
+
+    def test_budget_mb_overrides_the_shared_memory_budget(self, capsys,
+                                                          monkeypatch):
+        """``--budget-mb`` prices --footprint against the given budget: a
+        KB leaves no bucketed tile room for its shared rows. It sets the
+        one override the footprint model reads, REPRO_SMEM_KB, for the
+        pass only."""
+        monkeypatch.delenv("REPRO_SMEM_KB", raising=False)
+        assert spmd_main(["--footprint", "--device", "cpu"]) == 0
+        capsys.readouterr()
+        assert spmd_main(["--footprint", "--device", "cpu", "--budget-mb",
+                          "0.001"]) == 1
+        out = capsys.readouterr().out
+        assert "SP201" in out and "budget 1048 B" in out
+        assert "REPRO_SMEM_KB" not in os.environ
 
     def test_module_entry_point(self):
         env = dict(os.environ, PYTHONPATH=PORT + os.pathsep
