@@ -4,18 +4,20 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, ``nvcc`` and the checkout this file sits in. It runs
-thirteen phases and stops with a non-zero exit at the first failure (4b
-and 4c right after 4, 9a-9d and 10 right after phase 6, on phase 3's tensor
-before it is freed, 9e after phase 8, on 7e's factors, 11 after 9e, 12
-after 11):
+thirteen phases and stops with a non-zero exit at the first failure (4b,
+4c and 4d right after 4, 9a-9d and 10 right after phase 6, on phase 3's
+tensor before it is freed, 9e after phase 8, on 7e's factors, 11 after 9e,
+12 and 12b after 11):
 
 1. build the CUDA kernels from ``port/repro_torch/csrc`` with nvcc for
    sm_90a and print each instantiation's registers and spills (every
    kernel is instantiated per tile depth, 1, 2 and 4 slots or nonzeros
-   per thread, and per element type, float32, bfloat16 and float64, the
-   bf16 and float64 instantiations from sources of their own,
-   ``csrc/*_bf16.cu`` and ``csrc/*_f64.cu``); fail unless all three
-   element types of all three kernels are in the build log;
+   per thread, and per element type and accumulator: float32, bfloat16
+   and float64 in their own, float32 and bfloat16 summed in float64, all
+   but float32 from sources of their own, ``csrc/*_bf16.cu``,
+   ``csrc/*_f64.cu``, ``csrc/*_f32_acc64.cu`` and ``csrc/*_bf16_acc64.cu``);
+   fail unless all five variants of all three kernels are in the build
+   log;
    every other phase but 10 launches the default tile, 256 threads x 2;
 2. hold each kernel against its plain PyTorch version on the card: R = 1,
    3, 10, 64 and 160 (all but 64 padded to a 16-byte row stride; 160 is
@@ -29,8 +31,11 @@ after 11):
    ``sel``), a missing factor; TTTP also on padding slots whose values are
    not zero (it must give exact zeros there), over a ragged tail and over a
    bucket view; the run fails unless every one of these layouts occurred;
-   rtol = atol = 1e-4 (shared-memory atomics change the order of the bucket
-   sums from run to run); then every layout again in bf16 (values, factors
+   rtol = atol = 1e-4 (the plain version sums in another order); every
+   bucketed launch repeated on the same inputs must give the same bits
+   (each warp sums into a shared slab of its own, the slabs added in warp
+   order), in every variant below too; then every layout again in bf16
+   (values, factors
    and x rounded to bf16): each kernel's bf16 instantiation, whose output
    must be bf16, held against its plain version on float32 copies of the
    same bf16 inputs, compared in float32 at the reference's bf16 bound,
@@ -38,15 +43,23 @@ after 11):
    instantiation launched and no float32 one (no wrapper upcasts); then
    every layout again in float64: each kernel's float64 instantiation,
    whose output must be float64, held against its plain version in
-   float64 on the same inputs at rtol 1e-10 + 1e-12 x max |plain| (only
-   the order of the shared atomics differs), the per-dtype counts showing
-   float64 launches only;
+   float64 on the same inputs at rtol 1e-10 + 1e-12 x max |plain|, the
+   per-dtype counts showing float64 launches only; then every layout on
+   float32 and on bf16 operands under ``KernelTile(accum_dtype=
+   "float64")``: each kernel's ``<T, double>`` instantiation, output in
+   the operands' type, against its plain version with a float64
+   accumulator within one unit in the last place of that type plus 1e-12
+   x max |plain| (R = 160's matvec, TTTP then the MTTKRP with z rounded
+   between them, at 1e-4 or 6e-2), the counts showing those
+   instantiations alone;
 3. run implicit-CG ALS through ``repro_torch.launch.complete``: the function
    tensor at dims 20000^3 with 80 M nonzeros (density 1e-5, paper Fig. 7a),
    rank 10, 20 CG iterations, block_rows 8, two sweeps on the fused matvec,
    with every kernel's launch count zeroed before and read after; RMSE must
-   be finite and fall, and each kernel must have launched. Then one sweep on
-   the TTTP + bucketed-MTTKRP matvec from the same start, counts zeroed
+   be finite and fall, and each kernel must have launched; the same two
+   fused sweeps again from the same start must give bit-identical factors.
+   Then one sweep on the TTTP + bucketed-MTTKRP matvec from the same
+   start, counts zeroed
    before and read after, whose time is printed and whose factors must
    match the fused run's first sweep at rtol 1e-3 (atol 1e-3 of the
    factor's largest entry): CG carries the two routes' different summation
@@ -54,7 +67,8 @@ after 11):
 4. hold each kernel, through the ``kernels.ops`` wrapper the main path
    calls, against its plain version on the main path's tensors (rtol 1e-4,
    atol 1e-5 of the largest plain entry; a disagreement fails the run),
-   then time each with CUDA events at those shapes (the wrappers' time
+   the MTTKRP and the fused matvec launched twice, bit-identical, then
+   time each with CUDA events at those shapes (the wrappers' time
    includes their padded copies of the factors and x), beside its plain
    version, the one PyTorch call that computes the same function where
    there is one, and the least time the card could take (bytes over
@@ -67,7 +81,8 @@ after 11):
    each once through the ``kernels.ops`` wrapper with the counts zeroed
    before and read after (the bf16 path; its per-dtype counts must show
    the bf16 instantiations and no float32 one), held against the plain
-   versions on float32 copies of the same inputs at 6e-2, then timed
+   versions on float32 copies of the same inputs at 6e-2, the bucketed
+   pair launched twice, bit-identical (in 4c and 4d too), then timed
    beside the plain version on the bf16 inputs, the library call in bf16
    and the bound of ``kernel_terms`` with 2-byte elements, and the L2
    sector bytes of the 32-byte bf16 rows;
@@ -78,6 +93,14 @@ after 11):
       float64 and the bound of ``kernel_terms`` with 8-byte elements over
       the FP64 peak, and the L2 sector bytes of the 80-byte rows (the
       float64 rows of the JSON line);
+   4d. the same four calls on the main path's float32 tensors and on the
+      bf16 copies of 4b under ``KernelTile(accum_dtype="float64")``: the
+      ``<T, double>`` instantiations, held against the plain versions with
+      a float64 accumulator at phase 2's tolerance for them, the bucketed
+      pair launched twice, bit-identical, timed beside the plain version,
+      the library MTTKRP into a float64 output and the bound of
+      ``kernel_terms`` with the operands' bytes and the FP64 peak (the
+      ``*_f32_acc64`` and ``*_bf16_acc64`` rows of the JSON line);
 5. profile one fused sweep and one ``tttp_mttkrp`` sweep with
    torch.profiler: device time by kernel, the device's idle share of the
    sweep, and the costliest device kernels with their launch counts (the
@@ -232,10 +255,12 @@ after 11):
       (bucket granularity 4, 8, 16, the fused and the TTTP + MTTKRP
       matvec), with its signed offset, and must be finite; objective 0
       (before any solve) must lie inside the envelope widened by 1e-3:
-      float32 GGN is order-sensitive (two LOCAL runs of the same flags
-      differ by 6e-4 after two iterations, the atomics' order), and after
-      a solve the mesh's offset from LOCAL has no sign (PERF.md §6, the
-      mesh offsets). After a solve GGN's gate is float64: the same 2 x 2 grid of gloo ranks (spawned, through the
+      float32 GGN is order-sensitive, and after a solve the mesh's offset
+      from LOCAL has no sign (PERF.md §6, the mesh offsets). Two LOCAL
+      float32 GGN runs (poisson_log) in a subprocess under
+      ``torch.use_deterministic_algorithms(True)`` and
+      ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` must give bit-identical
+      objectives and factors; ops the switch warns about are logged. After a solve GGN's gate is float64: the same 2 x 2 grid of gloo ranks (spawned, through the
       library: the CLI has no dtype flag) runs two float64 GGN
       iterations (poisson_log) on each rank's shard and column slices of
       7e's problem against a LOCAL float64 run on the card, objectives
@@ -262,9 +287,13 @@ after 11):
    then ``--footprint --paper-scale`` (the paper's extents), whose
    findings are logged, not
    gated; each pass's wall time is logged;
+   12b. ``port/examples/quickstart.py`` on the card (its relative residual
+   must fall) and ``python -m repro_torch.launch.report --dir`` on two
+   dry-run records (both tables, one row each and the 16x16 one);
 13. print the kernel table as one JSON line (each row with its launches in
-   the main path's run, the bf16 and float64 rows in phases 4b's and 4c's
-   paths, and in every run of phases 3, 4b, 4c, 6, 7, 8, 9, 10 and 11
+   the main path's run, the bf16, float64 and float64-accumulator rows in
+   phases 4b's, 4c's and 4d's paths, and in every run of phases 3, 4b,
+   4c, 4d, 6, 7, 8, 9, 10 and 11
    under
    ``path_launches``, a mesh run's summed over its ranks, and, at the
    layouts phase 10 timed, every lattice tile's numbers under ``tiles``),
@@ -298,9 +327,17 @@ CHECK_TOL = dict(rtol=1e-4, atol=1e-4)
 # bf16 inputs: the reference's documented bound (tests/test_golden.py)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)
 # float64 kernels against their plain versions in float64: rtol, and atol as
-# a share of max |plain| (only the order of the shared atomics differs)
+# a share of max |plain| (only the order of the sums differs)
 F64_RTOL = 1e-10
 F64_ATOL_OF_MAX = 1e-12
+# float32 and bf16 operands summed in float64 (KernelTile(accum_dtype=
+# "float64")) against their plain versions with a float64 accumulator: both
+# round the same float products to double and differ only in the order of
+# the double sums, so the outputs may differ by one rounding of the output
+# type: at most one unit in the last place at |plain| (2^-23 relative in
+# float32, 2^-7 in bf16 at worst), plus this share of max |plain| for
+# entries that cancel to near 0
+ACC64_ATOL_OF_MAX = 1e-12
 # phase 4 at the main path's shapes: rtol, and atol as a share of max |plain|
 MAIN_RTOL = 1e-4
 MAIN_ATOL_OF_MAX = 1e-5
@@ -373,13 +410,20 @@ def phase_build():
             f"registers, {u['smem']} B static shared, {u['stack']} B stack, "
             f"spill stores {u['spill_stores']} B, loads {u['spill_loads']} "
             f"B")
-    # (kernel, fused or None, element type) of every instantiation built
+    # (kernel, fused or None, element type and accumulator) of every
+    # instantiation built; the accumulator is named only where it is wider
+    # than the element type's own (_build.kernel_name)
     built = {(name, args[1] if name == "bucket_rows_kernel" else None,
-              args[-1]) for name, args in usage}
-    missing = [k for k in ((n, f, dt) for n, f in (("tttp_kernel", None),
-                                                   ("bucket_rows_kernel", 0),
-                                                   ("bucket_rows_kernel", 1))
-                           for dt in ("float32", "bfloat16", "float64"))
+              tuple(a for a in args if isinstance(a, str)))
+             for name, args in usage}
+    variants = [(_build.dtype_name(dt),)
+                + (() if acc == _build.natural_accumulator(dt)
+                   else (_build.dtype_name(acc),))
+                for dt, acc in _build.VARIANTS]
+    missing = [k for k in ((n, f, v) for n, f in (("tttp_kernel", None),
+                                                  ("bucket_rows_kernel", 0),
+                                                  ("bucket_rows_kernel", 1))
+                           for v in variants)
                if k not in built]
     if missing:
         raise SystemExit(f"phase 1: instantiations missing from the build "
@@ -464,6 +508,8 @@ def phase_check(torch, dev):
     def seen(layout, held=True):
         covered[layout] = covered.get(layout, False) or bool(held)
 
+    n_same = 0
+
     for shape, nnz, sort_mode in CHECK_PROBLEMS:
         for r in CHECK_RANKS:
             st, factors = _check_problem(torch, gen, shape, nnz, r, dev,
@@ -498,15 +544,15 @@ def phase_check(torch, dev):
                     fs[mode] = None
                     tiles = len(kmttkrp.column_tiles(r))
                     kops.reset_launch_counts()
-                    close("mttkrp",
-                          kops.mttkrp_bucketed(bk, fs),
+                    got_m = kops.mttkrp_bucketed(bk, fs)
+                    close("mttkrp", got_m,
                           kref.mttkrp_bucketed_ref(
                               bk.values, bk.indices, bk.local_row, fs, mode,
                               block_rows)[:shape[mode]], w)
                     x = 0.5 * torch.randn(shape[mode], r, generator=gen,
                                           device=dev)
-                    close("cg_matvec",
-                          kops.cg_matvec_bucketed(bo, factors, x),
+                    got_c = kops.cg_matvec_bucketed(bo, factors, x)
+                    close("cg_matvec", got_c,
                           kref.cg_matvec_bucketed_ref(
                               bo.values, bo.indices, bo.local_row, factors, x,
                               mode, block_rows)[:shape[mode]], w)
@@ -529,6 +575,12 @@ def phase_check(torch, dev):
                     if wide:
                         seen(f"R={r}: mttkrp in {tiles} column tiles, matvec "
                              f"as tttp + mttkrp")
+                    # a second launch on the same inputs: the same bits
+                    same(torch, "mttkrp", got_m,
+                         kops.mttkrp_bucketed(bk, fs), w)
+                    same(torch, "cg_matvec", got_c,
+                         kops.cg_matvec_bucketed(bo, factors, x), w)
+                    n_same += 2
                     for k, v in _layouts(torch, pat,
                                          DEFAULT_TILE.threads).items():
                         seen(k, v)
@@ -539,9 +591,22 @@ def phase_check(torch, dev):
     log(f"phase 2: {n_cases} kernel-vs-plain checks passed at rtol=atol=1e-4 "
         f"(R = {', '.join(map(str, CHECK_RANKS))}; layouts: "
         f"{', '.join(covered)}); max |kernel - plain|: "
-        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items())
+        + f"; {n_same} bucketed launches repeated, bit-identical")
     check_bf16(torch, dev)
     check_f64(torch, dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        check_acc64(torch, dev, dtype)
+
+
+def same(torch, name, first, again, where):
+    """Fail unless a second launch on the same inputs gave the same bits
+    (the bucketed kernels sum each bucket in one order,
+    csrc/scatter_rows.cuh)."""
+    if not torch.equal(first, again):
+        diff = float((first.double() - again.double()).abs().max())
+        raise SystemExit(f"{where}: {name} launched twice on the same inputs "
+                         f"gave different outputs (max |diff| {diff:.3e})")
 
 
 def held_bf16(torch, name, got, want, where):
@@ -593,8 +658,10 @@ def check_bf16(torch, dev):
                     w = f"{where} block_rows={block_rows} mode={mode}"
                     part = [None if d == mode else f
                             for d, f in enumerate(f16)]
-                    e = held_bf16(torch, "mttkrp",
-                                  kops.mttkrp_bucketed(bk, part),
+                    got_m = kops.mttkrp_bucketed(bk, part)
+                    same(torch, "mttkrp bf16", got_m,
+                         kops.mttkrp_bucketed(bk, part), w)
+                    e = held_bf16(torch, "mttkrp", got_m,
                                   kref.mttkrp_bucketed_ref(
                                       bk.values.float(), bk.indices,
                                       bk.local_row,
@@ -604,8 +671,10 @@ def check_bf16(torch, dev):
                     worst["mttkrp"] = max(worst["mttkrp"], e)
                     x = (0.5 * torch.randn(shape[mode], r, generator=gen,
                                            device=dev)).to(bf16)
-                    e = held_bf16(torch, "cg_matvec",
-                                  kops.cg_matvec_bucketed(bo, f16, x),
+                    got_c = kops.cg_matvec_bucketed(bo, f16, x)
+                    same(torch, "cg_matvec bf16", got_c,
+                         kops.cg_matvec_bucketed(bo, f16, x), w)
+                    e = held_bf16(torch, "cg_matvec", got_c,
                                   kref.cg_matvec_bucketed_ref(
                                       bo.values.float(), bo.indices,
                                       bo.local_row, f32, x.float(), mode,
@@ -690,8 +759,10 @@ def check_f64(torch, dev):
                     w = f"{where} block_rows={block_rows} mode={mode}"
                     part = [None if d == mode else f
                             for d, f in enumerate(fs)]
-                    e = held_f64(torch, "mttkrp",
-                                 kops.mttkrp_bucketed(bk, part),
+                    got_m = kops.mttkrp_bucketed(bk, part)
+                    same(torch, "mttkrp float64", got_m,
+                         kops.mttkrp_bucketed(bk, part), w)
+                    e = held_f64(torch, "mttkrp", got_m,
                                  kref.mttkrp_bucketed_ref(
                                      bk.values, bk.indices, bk.local_row,
                                      part, mode, block_rows)[:shape[mode]],
@@ -699,8 +770,10 @@ def check_f64(torch, dev):
                     worst["mttkrp"] = max(worst["mttkrp"], e)
                     x = 0.5 * torch.randn(shape[mode], r, generator=gen,
                                           device=dev, dtype=f64)
-                    e = held_f64(torch, "cg_matvec",
-                                 kops.cg_matvec_bucketed(bo, fs, x),
+                    got_c = kops.cg_matvec_bucketed(bo, fs, x)
+                    same(torch, "cg_matvec float64", got_c,
+                         kops.cg_matvec_bucketed(bo, fs, x), w)
+                    e = held_f64(torch, "cg_matvec", got_c,
                                  kref.cg_matvec_bucketed_ref(
                                      bo.values, bo.indices, bo.local_row, fs,
                                      x, mode, block_rows)[:shape[mode]], w)
@@ -727,6 +800,138 @@ def check_f64(torch, dev):
     log(f"phase 2: {n_cases} float64 kernel-vs-plain checks passed at rtol "
         f"{F64_RTOL} + {F64_ATOL_OF_MAX} x max |plain| (plain in float64); "
         f"launches by element type {by_dtype}; max |kernel - plain|: "
+        + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
+
+
+def ulp(torch, t, dtype):
+    """One unit in the last place of ``dtype`` (float32 or bfloat16) at
+    |t| (t in float64), for normal numbers."""
+    bits = {torch.float32: 24, torch.bfloat16: 8}[dtype]
+    _, e = torch.frexp(t.abs())
+    return torch.ldexp(torch.ones_like(t), e - bits)
+
+
+def held_acc64(torch, name, got, want, dtype, where):
+    """Hold a kernel on ``dtype`` operands summed in float64 against its
+    plain version with a float64 accumulator (``want``, float64): output in
+    ``dtype``, finite, same shape, within one unit in the last place of
+    ``dtype`` at |plain| plus ``ACC64_ATOL_OF_MAX`` of max |plain|.
+    Returns max |err|."""
+    if got.dtype != dtype:
+        raise SystemExit(f"{where}: {name} returned {got.dtype}, not {dtype}")
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"{where}: {name} gave shape {tuple(got.shape)} "
+                         f"(plain {tuple(want.shape)}) or non-finite values")
+    want = want.to(dtype).double()
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    bad = err > ulp(torch, want, dtype) + ACC64_ATOL_OF_MAX * scale
+    if bool(bad.any()):
+        raise SystemExit(
+            f"{where}: {name} disagrees with its plain version in a float64 "
+            f"accumulator: {int(bad.sum())} of {bad.numel()} entries off, "
+            f"max |kernel - plain| = {float(err.max()):.3e}, max |plain| = "
+            f"{scale:.3e} (one {dtype} ulp + {ACC64_ATOL_OF_MAX} x max "
+            f"|plain|)")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_acc64(torch, dev, dtype):
+    """Phase 2's layouts on ``dtype`` (float32 or bfloat16) operands under
+    ``KernelTile(accum_dtype="float64")``: each kernel's ``<T, double>``
+    instantiation against its plain version with a float64 accumulator,
+    each bucketed launch repeated bit for bit, and the per-variant counts
+    showing those instantiations alone. R = 160's Gram matvec runs as TTTP
+    then the MTTKRP, z rounded to ``dtype`` between them, so it is held at
+    the float32 tolerance (float32) or the bf16 bound (bf16)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mttkrp as kmttkrp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.tile import KernelTile
+    from repro_torch.sparse.ccsr import bucket_pattern
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    f64 = torch.float64
+    tile = KernelTile(accum_dtype="float64")
+    label = _build.variant_name(dtype, f64)
+    worst = {"tttp": 0.0, "mttkrp": 0.0, "cg_matvec": 0.0}
+    n_cases = n_same = 0
+    kops.reset_launch_counts()
+    for shape, nnz, sort_mode in CHECK_PROBLEMS:
+        for r in CHECK_RANKS:
+            st, factors = _check_problem(torch, gen, shape, nnz, r, dev,
+                                         sort_mode)
+            where = f"phase 2 {label}, shape={shape} R={r}"
+            sd = st.astype(dtype)
+            fs = [f.to(dtype) for f in factors]
+            for part in (fs, [None] + fs[1:]):
+                e = held_acc64(torch, "tttp",
+                               kops.tttp_values(sd, part, tile),
+                               kref.tttp_ref(sd.values, st.indices, st.valid,
+                                             part, f64), dtype, where)
+                worst["tttp"] = max(worst["tttp"], e)
+                n_cases += 1
+            om = sd.with_values(torch.ones_like(sd.values))
+            for block_rows in (8, 16):
+                for mode in (0, len(shape) - 1):
+                    pat = bucket_pattern(sd, mode, block_rows)
+                    bk, bo = pat.gather(sd), pat.gather(om)
+                    w = f"{where} block_rows={block_rows} mode={mode}"
+                    part = [None if d == mode else f
+                            for d, f in enumerate(fs)]
+                    got_m = kops.mttkrp_bucketed(bk, part, tile=tile)
+                    same(torch, f"mttkrp {label}", got_m,
+                         kops.mttkrp_bucketed(bk, part, tile=tile), w)
+                    e = held_acc64(torch, "mttkrp", got_m,
+                                   kref.mttkrp_bucketed_ref(
+                                       bk.values, bk.indices, bk.local_row,
+                                       part, mode, block_rows,
+                                       f64)[:shape[mode]], dtype, w)
+                    worst["mttkrp"] = max(worst["mttkrp"], e)
+                    x = (0.5 * torch.randn(shape[mode], r, generator=gen,
+                                           device=dev)).to(dtype)
+                    got_c = kops.cg_matvec_bucketed(bo, fs, x, tile=tile)
+                    same(torch, f"cg_matvec {label}", got_c,
+                         kops.cg_matvec_bucketed(bo, fs, x, tile=tile), w)
+                    want_c = kref.cg_matvec_bucketed_ref(
+                        bo.values, bo.indices, bo.local_row, fs, x, mode,
+                        block_rows, f64)[:shape[mode]]
+                    if r > kmttkrp.MAX_RANK:
+                        tol = BF16_TOL if dtype == torch.bfloat16 else \
+                            CHECK_TOL
+                        torch.testing.assert_close(
+                            got_c.double(), want_c, **tol,
+                            msg=lambda m: f"{w}: cg_matvec {label}: {m}")
+                    else:
+                        e = held_acc64(torch, "cg_matvec", got_c, want_c,
+                                       dtype, w)
+                        worst["cg_matvec"] = max(worst["cg_matvec"], e)
+                    fx = list(fs)
+                    fx[mode] = x
+                    nb, c, nd = bo.indices.shape
+                    e = held_acc64(torch, "tttp bucket view",
+                                   kops.tttp_bucket_values(bo, fx, tile),
+                                   kref.tttp_ref(
+                                       bo.values.reshape(-1),
+                                       bo.indices.reshape(-1, nd),
+                                       bo.valid.reshape(-1), fx,
+                                       f64).view(nb, c), dtype, w)
+                    worst["tttp"] = max(worst["tttp"], e)
+                    n_cases += 3
+                    n_same += 2
+    torch.cuda.synchronize()
+    by_dtype = kops.launch_counts_by_dtype()
+    if any(c[label] == 0 or sum(c.values()) != c[label]
+           for c in by_dtype.values()):
+        raise SystemExit(f"phase 2 {label}: launches by element type and "
+                         f"accumulator {by_dtype}: every kernel must launch "
+                         f"its {label} instantiation and no other")
+    log(f"phase 2: {n_cases} {label} kernel-vs-plain checks passed at one "
+        f"{dtype} ulp + {ACC64_ATOL_OF_MAX} x max |plain| (plain with a "
+        f"float64 accumulator; R = 160's two-kernel matvec at "
+        f"{'6e-2' if dtype == torch.bfloat16 else '1e-4'}); {n_same} "
+        f"bucketed launches repeated, bit-identical; launches by element "
+        f"type and accumulator {by_dtype}; max |kernel - plain|: "
         + ", ".join(f"{k}={v:.2e}" for k, v in worst.items()))
 
 
@@ -770,6 +975,24 @@ def phase_main_path(torch):
         f"(1 + {CG_ITERS} per mode), tttp {launches['tttp']} in all "
         f"(one RMSE before the sweeps and one after each)")
 
+    # the same two fused sweeps again from the same start: the same bits
+    # (the bucketed kernels sum in one order; the sweep's aten ops are
+    # deterministic)
+    args = complete.build_parser().parse_args(
+        argv + ["--matvec-path", "fused"])
+    t0 = time.perf_counter()
+    again = complete.run_solver(args, run.dataset, run.init_factors)
+    torch.cuda.synchronize()
+    for d, (a, b) in enumerate(zip(again.factors, run.factors)):
+        if not torch.equal(a, b):
+            raise SystemExit(
+                f"phase 3: two fused ALS runs of {SWEEPS} sweeps from the "
+                f"same start differ in factor {d} (max |diff| "
+                f"{float((a - b).abs().max()):.3e})")
+    log(f"  fused run repeated from the same start: {SWEEPS} sweeps in "
+        f"{time.perf_counter() - t0:.1f} s, factors bit-identical")
+    del again
+
     args = complete.build_parser().parse_args(
         argv + ["--matvec-path", "tttp_mttkrp"])
     args.sweeps = 1
@@ -803,7 +1026,7 @@ def held(torch, name, got, want, where="phase 4"):
     """Hold a kernel's result at the main path's shapes against its plain
     version: finite, same shape, and within rtol 1e-4 plus an atol of 1e-5
     of the largest plain entry (a bucket row sums thousands of order-1
-    terms in an order the shared-memory atomics change). Raises SystemExit
+    terms in another order than the plain version's). Raises SystemExit
     when it fails; returns max |kernel - plain|."""
     if got.shape != want.shape:
         raise SystemExit(f"{where}: {name} gave shape {tuple(got.shape)}, its "
@@ -823,13 +1046,15 @@ def held(torch, name, got, want, where="phase 4"):
     return float(err.max())
 
 
-def terms_bound(family, **shapes):
+def terms_bound(family, acc_bytes=None, **shapes):
     """(bound ms, "bytes" or "operations") of one kernel call, from
-    ``roofline.kernel_terms`` of its shapes."""
+    ``roofline.kernel_terms`` of its shapes; operations over the peak of
+    the accumulator (``acc_bytes``, default the element's)."""
     from repro_torch.launch.roofline import bound, kernel_terms
     t = kernel_terms(family, **shapes)
     return bound(t["bytes"], t["flops"], elem_bytes=shapes.get("elem_bytes",
-                                                               4))
+                                                               4),
+                 acc_bytes=acc_bytes)
 
 
 def phase_timing(torch, run, launches, other_launches):
@@ -909,8 +1134,11 @@ def phase_timing(torch, run, launches, other_launches):
         return kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
                                         others, mode, BLOCK_ROWS)[:rows]
 
-    err = held(torch, "mttkrp_bucketed", kops.mttkrp_bucketed(bk, others),
-               plain_mttkrp())
+    got = kops.mttkrp_bucketed(bk, others)
+    same(torch, "mttkrp_bucketed", got, kops.mttkrp_bucketed(bk, others),
+         "phase 4")
+    err = held(torch, "mttkrp_bucketed", got, plain_mttkrp())
+    del got
     n_valid = int(bk.valid.sum())
     other_fs = [f for f in others if f is not None]
     other_rows = [f.shape[0] for f in other_fs]
@@ -952,8 +1180,11 @@ def phase_timing(torch, run, launches, other_launches):
                                            bo.local_row, fs, x, mode,
                                            BLOCK_ROWS)[:rows]
 
-    err = held(torch, "cg_matvec_bucketed",
-               kops.cg_matvec_bucketed(bo, fs, x), plain_cg())
+    got = kops.cg_matvec_bucketed(bo, fs, x)
+    same(torch, "cg_matvec_bucketed", got, kops.cg_matvec_bucketed(bo, fs, x),
+         "phase 4")
+    err = held(torch, "cg_matvec_bucketed", got, plain_cg())
+    del got
     n_valid = int(bo.valid.sum())
     b_ms, b_by = terms_bound("cg_matvec", slots=bo.num_blocks * bo.capacity,
                              nd=nd, rank=RANK, valid=n_valid,
@@ -981,24 +1212,33 @@ def phase_timing(torch, run, launches, other_launches):
         log(f"  factor-row gathers: {g / 1e9:.2f} GB of L2 sectors (from "
             f"shapes), {g / row['ms'] / 1e9:.2f} TB/s")
     log(f"phase 4: each kernel held against its plain version at rtol "
-        f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|")
+        f"{MAIN_RTOL}, atol {MAIN_ATOL_OF_MAX} x max |plain|; the MTTKRP "
+        f"and the fused matvec launched twice, bit-identical")
     return rows_out
 
 
-def phase_timing_dtype(torch, run, dtype):
-    """Phases 4b (bfloat16) and 4c (float64): the four calls of phase 4 on
-    copies of the main path's tensors in ``dtype``, each held against its
-    plain version (bf16: in float32 at the reference's bf16 bound; float64:
-    in float64 at rtol 1e-10 + 1e-12 x max |plain|), then timed. Returns
-    the rows and the path's launch counts."""
+def phase_timing_dtype(torch, run, dtype, widen=False):
+    """Phases 4b (bfloat16), 4c (float64) and 4d (``widen``: float32 or
+    bfloat16 operands summed in float64 under ``KernelTile(accum_dtype=
+    "float64")``): the four calls of phase 4 on copies of the main path's
+    tensors in ``dtype``, each held against its plain version (bf16: in
+    float32 at the reference's bf16 bound; float64: in float64 at rtol
+    1e-10 + 1e-12 x max |plain|; 4d: the plain version with a float64
+    accumulator, one ulp of ``dtype``), the bucketed pair launched again
+    (the same bits), then timed. Returns the rows and the path's launch
+    counts."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref as kref
+    from repro_torch.kernels.tile import KernelTile
     from repro_torch.launch.roofline import gather_sector_bytes
-    bf16 = dtype == torch.bfloat16
-    phase = "4b" if bf16 else "4c"
-    sfx = _build.KERNEL_DTYPES[dtype]
-    dname = _build.dtype_name(dtype)
+    f64 = torch.float64
+    acc = f64 if widen else _build.natural_accumulator(dtype)
+    tile = KernelTile(accum_dtype="float64") if widen else None
+    bf16 = dtype == torch.bfloat16 and not widen
+    phase = "4d" if widen else ("4b" if bf16 else "4c")
+    sfx = _build.VARIANTS[(dtype, acc)][0]
+    dname = _build.variant_name(dtype, acc)
     hold_dtype = torch.float32 if bf16 else dtype
     st, omega = run.dataset.tensor, run.dataset.omega
     mode = 0
@@ -1015,11 +1255,13 @@ def phase_timing_dtype(torch, run, dtype):
     x = fs[mode]
     nb, c, _ = bo.indices.shape
     calls = {
-        f"tttp_{sfx}": lambda: kops.tttp_values(ones, fs),
-        f"tttp_bucket_view_{sfx}": lambda: kops.tttp_bucket_values(bo, fs),
-        f"mttkrp_bucketed_{sfx}": lambda: kops.mttkrp_bucketed(bk, others),
-        f"cg_matvec_bucketed_{sfx}": lambda: kops.cg_matvec_bucketed(bo, fs,
-                                                                     x)}
+        f"tttp_{sfx}": lambda: kops.tttp_values(ones, fs, tile),
+        f"tttp_bucket_view_{sfx}": lambda: kops.tttp_bucket_values(bo, fs,
+                                                                   tile),
+        f"mttkrp_bucketed_{sfx}": lambda: kops.mttkrp_bucketed(bk, others,
+                                                               tile=tile),
+        f"cg_matvec_bucketed_{sfx}": lambda: kops.cg_matvec_bucketed(
+            bo, fs, x, tile=tile)}
     # the path in dtype: each call once, the counts zeroed before, read after
     kops.reset_launch_counts()
     outs = {name: fn() for name, fn in calls.items()}
@@ -1033,43 +1275,57 @@ def phase_timing_dtype(torch, run, dtype):
                          f"{dname} instantiation and no other")
     log(f"phase {phase}: {dname} path launches {launches}, by element type "
         f"{by_dtype}")
+    for name in (f"mttkrp_bucketed_{sfx}", f"cg_matvec_bucketed_{sfx}"):
+        same(torch, name, outs[name], calls[name](), f"phase {phase}")
 
     def plain(name, dt):
         """The plain version of ``name`` on the cast inputs, run in ``dt``
-        (the holding type to hold the kernel, ``dtype`` to time it)."""
+        (the holding type to hold the kernel, ``dtype`` to time it); under
+        ``widen`` on the ``dtype`` inputs with a float64 accumulator."""
         f = [g.to(dt) for g in fs]
+        a = f64 if widen else None
         if name.startswith("tttp_bucket_view"):
             return kref.tttp_ref(bo.values.to(dt).reshape(-1),
                                  bo.indices.reshape(-1, nd),
-                                 bo.valid.reshape(-1), f).view(nb, c)
+                                 bo.valid.reshape(-1), f, a).view(nb, c)
         if name.startswith("tttp"):
             return kref.tttp_ref(ones.values.to(dt), ones.indices,
-                                 ones.valid, f)
+                                 ones.valid, f, a)
         if name.startswith("mttkrp"):
             part = [None if d == mode else g for d, g in enumerate(f)]
             return kref.mttkrp_bucketed_ref(bk.values.to(dt), bk.indices,
                                             bk.local_row, part, mode,
-                                            BLOCK_ROWS)[:rows]
+                                            BLOCK_ROWS, a)[:rows]
         return kref.cg_matvec_bucketed_ref(bo.values.to(dt), bo.indices,
                                            bo.local_row, f, x.to(dt),
-                                           mode, BLOCK_ROWS)[:rows]
+                                           mode, BLOCK_ROWS, a)[:rows]
 
-    hold = held_bf16 if bf16 else held_f64
     errs = {}
     for name, out in outs.items():
-        errs[name] = hold(torch, name, out, plain(name, hold_dtype),
-                          f"phase {phase}")
+        want = plain(name, hold_dtype)
+        if widen:
+            errs[name] = held_acc64(torch, name, out, want, dtype,
+                                    f"phase {phase}")
+        elif bf16:
+            errs[name] = held_bf16(torch, name, out, want, f"phase {phase}")
+        else:
+            errs[name] = held_f64(torch, name, out, want, f"phase {phase}")
+        del want
     del outs
     cols = [st.indices[:, d].long() for d in range(nd)]
     mvals = cast.masked_values()
 
     def library_mttkrp():
+        """gather-product + index_add_, into an output in the accumulator
+        (float64 under ``widen``, then rounded to ``dtype``)."""
         prod = mvals[:, None]
         for d, f in enumerate(others):
             if f is not None:
                 prod = prod * f[cols[d]]
-        return torch.zeros(rows, RANK, dtype=dtype, device=prod.device
-                           ).index_add_(0, cols[mode], prod)
+        out = torch.zeros(rows, RANK, dtype=acc if widen else dtype,
+                          device=prod.device)
+        out = out.index_add_(0, cols[mode], prod.to(out.dtype))
+        return out.to(dtype)
 
     n_coo = int(ones.valid.sum())
     n_bo, n_bk = int(bo.valid.sum()), int(bk.valid.sum())
@@ -1093,7 +1349,7 @@ def phase_timing_dtype(torch, run, dtype):
         family = next(f for f in ("tttp", "mttkrp", "cg_matvec")
                       if name.startswith(f))
         b_ms, b_by = terms_bound(family, nd=nd, rank=RANK, elem_bytes=eb,
-                                 **shapes[name])
+                                 acc_bytes=acc.itemsize, **shapes[name])
         rows_out.append(dict(
             name=name, route="cuda",
             source=f"port/repro_torch/csrc/{family}_{sfx}.cu",
@@ -1109,16 +1365,22 @@ def phase_timing_dtype(torch, run, dtype):
         n_gathers = (shapes[row["name"]]["valid"]
                      * len(shapes[row["name"]]["factor_rows"]))
         g = gather_sector_bytes(n_gathers, RANK, eb)
-        log(f"phase {phase}: {row['name']:<24} {row['ms']:9.3f} ms  plain "
+        log(f"phase {phase}: {row['name']:<28} {row['ms']:9.3f} ms  plain "
             f"{row['plain_ms']:9.3f} ms  bound {row['bound_ms']:.3f} ms "
             f"({row['bound_by']})  library {row['library_ms']}  "
             f"max|err| {row['max_abs_err']:.2e}  [{row['shape']}]; "
             f"factor-row gathers {g / 1e9:.2f} GB of L2 sectors, "
             f"{g / row['ms'] / 1e9:.2f} TB/s")
+    if widen:
+        how = (f"with a float64 accumulator at one {dtype} ulp + "
+               f"{ACC64_ATOL_OF_MAX} x max |plain|")
+    elif bf16:
+        how = f"in float32 at rtol=atol={BF16_TOL['rtol']}"
+    else:
+        how = f"in float64 at rtol {F64_RTOL} + {F64_ATOL_OF_MAX} x max |plain|"
     log(f"phase {phase}: each {dname} kernel held against its plain version "
-        + (f"in float32 at rtol=atol={BF16_TOL['rtol']}" if bf16 else
-           f"in float64 at rtol {F64_RTOL} + {F64_ATOL_OF_MAX} x max "
-           f"|plain|"))
+        + how + "; the MTTKRP and the fused matvec launched twice, "
+        "bit-identical")
     return rows_out, launches
 
 
@@ -2581,6 +2843,33 @@ def check_footprint(torch, lay):
                 f"spills {log_u['spill_stores']}/{log_u['spill_loads']} B), "
                 f"{card['blocks_per_sm']} CTAs per SM (model "
                 f"{est.blocks_per_sm})")
+            # the other element types and accumulators at this geometry
+            # and tile: the model against the card, no launch
+            seen = []
+            for dt, acc in _build.VARIANTS:
+                if dt == geom.dtype and acc == _build.natural_accumulator(dt):
+                    continue
+                t = dataclasses.replace(tile, accum_dtype=(
+                    "float64" if acc != _build.natural_accumulator(dt)
+                    else "float32"))
+                g = dataclasses.replace(geom, dtype=dt)
+                e = footprint.estimate_footprint(family, t, g)
+                fam, var, _ = footprint.instantiation(family, g, t)
+                d = e.smem_bytes - e.static_smem
+                c = _build.kernel_attributes(fam, var, t.per_thread,
+                                             t.threads, d, dt, acc)
+                if e.registers_from != "build log" or \
+                        e.registers != c["registers"] or \
+                        e.static_smem != c["static_smem"] or \
+                        e.blocks_per_sm != c["blocks_per_sm"] or \
+                        c["blocks_per_sm"] < 1 or not e.fits:
+                    raise SystemExit(
+                        f"phase 10a: {lay.label} {family} {t.short()} "
+                        f"{_build.variant_name(dt, acc)}: the footprint "
+                        f"model ({e.format()}) against the card {c}")
+                seen.append(f"{_build.variant_name(dt, acc)} "
+                            f"{c['registers']}r/{d}B/{c['blocks_per_sm']}")
+            log(f"      other variants, model = card: {'; '.join(seen)}")
     return out
 
 
@@ -2819,9 +3108,9 @@ DIST_CASES = (("als", "2,2", RANK), ("ccd", "2,2", RANK),
 DIST_SWEEPS = 2
 DIST_TOL = 1e-4
 # float32 GGN is order-sensitive (ROADMAP.md Queue C) and the solvers run
-# in float32: two LOCAL runs of the same flags differ by 6e-4 after the
-# second iteration here (the atomics' order), and by 2e-3 across bucket
-# granularities and matvec routes (H100 runs, PERF.md §6). The mesh's float32
+# in float32: runs differ by 2e-3 across bucket granularities and matvec
+# routes (H100 runs, PERF.md §6); two LOCAL runs of the same flags give the
+# same bits (phase_dist_determinism). The mesh's float32
 # objective is read, per iteration, against the envelope of LOCAL runs
 # under the CLI's summation orders widened by this. Objective 0 (the same
 # initial factors everywhere, only the objective's own sum differs) must
@@ -3335,6 +3624,70 @@ def phase_dist_collectives(torch):
     return counts
 
 
+# 11b's LOCAL float32 GGN run twice in one process under PyTorch's
+# determinism switch (CUBLAS_WORKSPACE_CONFIG is set before CUDA starts);
+# ops that have no deterministic implementation warn (warn_only) and are
+# named in the result
+GGN_DETERMINISM = r"""
+import json, os, sys, warnings
+sys.path.insert(0, os.path.join(sys.argv[1], "port"))
+import torch
+torch.use_deterministic_algorithms(True, warn_only=True)
+from repro_torch.kernels import ops as kops
+from repro_torch.launch import complete
+argv = json.loads(sys.argv[2])
+with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter("always")
+    kops.reset_launch_counts()
+    runs = [complete.main(argv) for _ in range(2)]
+a, b = runs
+named = sorted({str(w.message).split("\n")[0][:200] for w in caught
+                if "deterministic" in str(w.message)})
+print("RESULT " + json.dumps({
+    "objectives": [a.objective, b.objective],
+    "factors_equal": [bool(torch.equal(x, y))
+                      for x, y in zip(a.factors, b.factors)],
+    "factor_diff": [float((x - y).abs().max())
+                    for x, y in zip(a.factors, b.factors)],
+    "launches": kops.launch_counts(),
+    "nondeterministic_ops": named}))
+"""
+
+
+def phase_dist_determinism(torch):
+    """11b: two LOCAL float32 GGN runs (poisson_log, 11b's problem) in a
+    subprocess under ``torch.use_deterministic_algorithms(True)`` with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8``: their objectives and factors must
+    be bit-identical (the bucketed kernels sum in one order; the
+    ``index_add_`` reductions need the switch). Ops the switch warns about
+    are logged by name."""
+    argv = dist_argv("ggn", RANK) + ["--loss", GGN_LOSS]
+    env = {**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8",
+           "PYTHONPATH": os.path.join(ROOT, "port")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", GGN_DETERMINISM, ROOT,
+                          json.dumps(argv)], env=env, capture_output=True,
+                         text=True, timeout=600)
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("RESULT ")]
+    if out.returncode != 0 or not lines:
+        raise SystemExit(f"phase 11b: the deterministic GGN pair exited "
+                         f"{out.returncode}:\n{out.stderr[-4000:]}")
+    res = json.loads(lines[-1][len("RESULT "):])
+    obj_a, obj_b = res["objectives"]
+    log(f"phase 11b: two LOCAL float32 GGN runs under "
+        f"torch.use_deterministic_algorithms(True) in "
+        f"{time.perf_counter() - t0:.1f} s: objectives {obj_a} and {obj_b}, "
+        f"factors equal {res['factors_equal']} (max |diff| "
+        f"{res['factor_diff']}), launches {res['launches']}, ops the switch "
+        f"warned about: {res['nondeterministic_ops'] or 'none'}")
+    if obj_a != obj_b or not all(res["factors_equal"]):
+        raise SystemExit("phase 11b: two LOCAL float32 GGN runs of the same "
+                         "flags under the determinism switch differ")
+    if any(n == 0 for n in res["launches"].values()):
+        raise SystemExit(f"phase 11b: the deterministic GGN pair did not "
+                         f"launch every kernel: {res['launches']}")
+
+
 def phase_dist(torch, ref):
     """Phase 11: distribution on the card. Returns each run's launches."""
     t0 = time.perf_counter()
@@ -3342,6 +3695,7 @@ def phase_dist(torch, ref):
         "the card, nccl takes one rank per card)")
     counts = phase_dist_main(torch, ref)
     counts.update(phase_dist_algorithms(torch))
+    phase_dist_determinism(torch)
     t1 = time.perf_counter()
     counts.update(phase_dist_ggn64(torch))
     log(f"  11b float64 GGN case: {time.perf_counter() - t1:.1f} s")
@@ -3413,6 +3767,68 @@ def phase_gates():
             + (f" (tripwire: {rule})" if rule else ""))
 
 
+# ---------------------------------------------------------------------------
+# phase 12b
+# ---------------------------------------------------------------------------
+
+# two dry-run records in the reference's format (one per mesh), the fixture
+# of launch.report --dir
+REPORT_RECORDS = (
+    dict(arch="completion/als", shape="20000^3 nnz 80M", mesh="16x16",
+         bytes_per_device=3.5 * 2**30, hlo_flops_per_device=2.5e11,
+         collective_bytes_per_device=4.2e9,
+         collective_counts={"all-reduce": 66}, compute_s=0.0031,
+         memory_s=0.0125, collective_s=0.0291, dominant="collective",
+         useful_flops_ratio=None, roofline_fraction=0.412),
+    dict(arch="completion/als", shape="20000^3 nnz 80M", mesh="2x16x16",
+         bytes_per_device=1.8 * 2**30, hlo_flops_per_device=1.2e11,
+         collective_bytes_per_device=2.1e9,
+         collective_counts={"all-reduce": 66}, compute_s=0.0016,
+         memory_s=0.0063, collective_s=0.0150, dominant="collective",
+         useful_flops_ratio=None, roofline_fraction=0.43))
+
+
+def phase_examples(tmp):
+    """Phase 12b: ``port/examples/quickstart.py`` on the card (its default
+    sizes), whose relative residual must be finite and fall, and
+    ``python -m repro_torch.launch.report --dir`` on ``REPORT_RECORDS``,
+    which must print both tables, one row per record in the dry-run table
+    and the 16x16 one in the roofline table. Each a subprocess."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "port")}
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.join(
+        ROOT, "port", "examples", "quickstart.py")], env=env,
+        capture_output=True, text=True, timeout=300)
+    errs = [float(m.group(1)) for m in re.finditer(
+        r"relative residual (\S+)", out.stdout)]
+    if out.returncode != 0 or len(errs) < 2 or not all(
+            math.isfinite(e) for e in errs) or not errs[-1] < errs[0]:
+        raise SystemExit(f"phase 12b: port/examples/quickstart.py exited "
+                         f"{out.returncode}, residuals {errs}:\n"
+                         f"{out.stderr[-3000:]}")
+    log(f"phase 12b: port/examples/quickstart.py on the card in "
+        f"{time.perf_counter() - t0:.1f} s: relative residual {errs[0]:.5f} "
+        f"-> {errs[-1]:.5f} over {len(errs)} sweeps")
+    d = os.path.join(tmp, "dryrun")
+    os.makedirs(d, exist_ok=True)
+    for i, rec in enumerate(REPORT_RECORDS):
+        with open(os.path.join(d, f"{i}.json"), "w") as f:
+            json.dump(rec, f)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.report",
+                          "--dir", d], env=env, capture_output=True,
+                         text=True, timeout=120)
+    rows = [ln for ln in out.stdout.splitlines()
+            if ln.startswith("| completion/als")]
+    if out.returncode != 0 or "### Dry-run records" not in out.stdout or \
+            "### Roofline" not in out.stdout or len(rows) != 3:
+        raise SystemExit(f"phase 12b: launch.report --dir exited "
+                         f"{out.returncode}:\n{out.stdout[-2000:]}"
+                         f"{out.stderr[-2000:]}")
+    log(f"phase 12b: launch.report --dir on {len(REPORT_RECORDS)} records in "
+        f"{time.perf_counter() - t0:.1f} s: {len(rows)} table rows")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3435,6 +3851,12 @@ def main():
     f64_rows, f64_launches = phase_timing_dtype(torch, run, torch.float64)
     kernels += f64_rows
     torch.cuda.empty_cache()
+    acc64_launches = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        acc64_rows, acc64_launches[dtype] = phase_timing_dtype(
+            torch, run, dtype, widen=True)
+        kernels += acc64_rows
+        torch.cuda.empty_cache()
     for path in ("fused", "tttp_mttkrp"):
         phase_profile(torch, run, path)
     solver_counts, solver_rows = phase_solvers(torch, run)
@@ -3461,12 +3883,20 @@ def main():
     torch.cuda.empty_cache()
     dist_counts = phase_dist(torch, main_ref)
     phase_gates()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        phase_examples(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     # each kernel's launches in every run of phases 3, 4b, 6, 7, 8, 9, 10
     # and 11 (summed over a mesh run's ranks), each counted from zero, and
     # phase 10's lattice timings at the row's layout
     paths = {"als fused": launches, "als tttp_mttkrp": other_launches,
              "bf16 path (4b)": bf16_launches,
-             "float64 path (4c)": f64_launches, **solver_counts,
+             "float64 path (4c)": f64_launches,
+             "float32/float64 path (4d)": acc64_launches[torch.float32],
+             "bfloat16/float64 path (4d)": acc64_launches[torch.bfloat16],
+             **solver_counts,
              **stream_counts, **serve_counts, **planner_counts,
              **tile_counts, **dist_counts}
     for row in kernels:

@@ -42,8 +42,9 @@ torch meaning:
   ``--strict-suppressions``.
 
 The JAX package has no rule for nondeterministic atomics, and the port adds
-none (the kernels' shared-memory atomics and their run-to-run last bits are
-described in ``csrc/scatter_rows.cuh``).
+none: its kernels use no atomics (each warp of a bucketed CTA sums into a
+shared slab of its own, ``csrc/scatter_rows.cuh``), and the aten reductions
+that do (``index_add_``) follow PyTorch's determinism switch.
 
 Suppression syntax (requires a reason after ``--``)::
 

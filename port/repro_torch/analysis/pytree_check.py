@@ -138,6 +138,8 @@ def _static_type_grids():
         ("block_rows", dc.replace(base, block_rows=16)),
         ("threads", dc.replace(base, threads=128)),
         ("per_thread", dc.replace(base, per_thread=4)),
+        # the accumulator picks the instantiation a launch takes
+        ("accum_dtype", dc.replace(base, accum_dtype="float64")),
     ]))
     return grids
 

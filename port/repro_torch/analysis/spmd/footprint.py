@@ -3,10 +3,12 @@ lattices: the port's counterpart of the JAX package's
 ``analysis/spmd/vmem.py``.
 
 Prices every tile of ``planner.tuner.LATTICES``, for each kernel family and
-in every element type the kernels are instantiated for (float32,
-bfloat16, float64: shared memory at 8 bytes a value and the f64
-instantiations' registers for the last), with the footprint model of
-``kernels/footprint.py``, and
+in every element type and accumulator the kernels are instantiated for
+(float32, bfloat16, float64 in their own accumulators, and float32 and
+bfloat16 summed in float64: each tile again with ``accum_dtype="float64"``;
+one warp slab per warp at the accumulator's bytes, x's rows at the compute
+type's, and each instantiation's own registers), with the footprint model
+of ``kernels/footprint.py``, and
 reports ``SP201`` for a tile that does not fit the card: more dynamic
 shared memory than a CTA may opt in to, more than 255 registers a thread,
 or more registers than an SM holds for one CTA. The model backs the
@@ -29,6 +31,7 @@ Two tiers of layouts:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Tuple
 
 import torch
@@ -39,6 +42,11 @@ from repro_torch.kernels.footprint import (KernelGeometry,
                                            smem_budget_bytes)
 
 DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+# the tile accumulators priced over each element type: float64 operands sum
+# in float64 whatever the tile names, so they are priced once
+ACCUMULATORS = {torch.float32: ("float32", "float64"),
+                torch.bfloat16: ("float32", "float64"),
+                torch.float64: ("float32",)}
 
 # (label, dims, rank, COO capacity, bucket capacity at block_rows 8)
 _PORT_LAYOUTS: Tuple[Tuple[str, Tuple[int, ...], int, int, int], ...] = (
@@ -83,17 +91,20 @@ def run(paper_scale: bool = False) -> List[Finding]:
     layouts = _PAPER_LAYOUTS if paper_scale else _PORT_LAYOUTS
     findings: List[Finding] = []
     for family, lattice in sorted(tuner.LATTICES.items()):
-        for tile in lattice:
+        for base in lattice:
             for dtype in DTYPES:
-                for label, geom in _geometries(family, layouts,
-                                               tile.block_rows, dtype):
-                    est = estimate_footprint(family, tile, geom,
-                                             budget=budget)
-                    if not est.fits:
-                        findings.append(Finding(
-                            "footprint", 0, 0, "SP201",
-                            f"[{label}, {dtype}] lattice tile cannot run "
-                            f"on the card: {est.format()}"))
+                for accum in ACCUMULATORS[dtype]:
+                    tile = dataclasses.replace(base, accum_dtype=accum)
+                    for label, geom in _geometries(family, layouts,
+                                                   tile.block_rows, dtype):
+                        est = estimate_footprint(family, tile, geom,
+                                                 budget=budget)
+                        if not est.fits:
+                            findings.append(Finding(
+                                "footprint", 0, 0, "SP201",
+                                f"[{label}, {dtype}, {accum} accumulator] "
+                                f"lattice tile cannot run on the card: "
+                                f"{est.format()}"))
     return findings
 
 

@@ -22,9 +22,10 @@
 // are gathered as 16-byte loads from copies padded to a 16-byte row stride;
 // the bucket's block_rows rows of x are loaded into shared memory once per
 // CTA, not gathered per slot; the tile's slots per thread per step (two by
-// default) keep loads in flight; per-thread running sums reach the CTA's
-// shared output rows only when a thread's row changes (scatter_rows.cuh).
-// No global atomics.
+// default) keep loads in flight; per-thread running sums reach the warp's
+// shared slab of the output rows only when a thread's row changes, and the
+// slabs are summed in warp order (scatter_rows.cuh). No atomics, so the
+// output is the same every run.
 #include "bucket_rows.cuh"
 
 extern "C" int repro_cg_matvec_bucketed_f32(

@@ -5,16 +5,19 @@
 // nd pointers (NULL for an absent factor) and copy it into a FactorTable, so
 // a launch needs no device allocation and no copy.
 //
-// Element types: every kernel is instantiated for float, __nv_bfloat16 and
-// double inputs (the T of its template). A bf16 kernel reads bf16 values,
-// factor rows and x from device memory, converts them to float in registers
-// with the intrinsics, multiplies and accumulates in float, and writes its
-// output in bf16 (the reference's Pallas kernels: Hadamard chain, f32
-// accumulator, result cast back to the input dtype). A double kernel reads,
-// multiplies, accumulates and writes double (the reference's float64
-// operands with accum_dtype "float64"). Acc<T> names the accumulator: float
-// for float and bf16, double for double. Rows of every type are read as
-// 16-byte vectors: 4 floats, 8 bf16 values or 2 doubles per load
+// Element types and accumulators: every kernel is instantiated for float,
+// __nv_bfloat16 and double inputs (the T of its template), each summed in its
+// own accumulator, and float and bf16 inputs also in a double accumulator
+// (the S of its template). A kernel reads T from device memory and converts
+// it in registers to its compute type C = Acc<T>::type: float for float and
+// bf16 (the intrinsics for bf16), double for double. The Hadamard chain of
+// factor rows, and kr * x in the fused matvec, run in C. With S = C (the
+// default) every sum runs in C too. With S = double over float or bf16
+// inputs each product is cast to double before it is summed, and the dot
+// products, the running row sums and the shared accumulator are double: the
+// reference's KernelTile(accum_dtype="float64"), whose Pallas kernels cast
+// before each sum. Either way the output is written as T. Rows of every type
+// are read as 16-byte vectors: 4 floats, 8 bf16 values or 2 doubles per load
 // (Elem<T>::VEC), so a row's padded stride RS is a multiple of VEC.
 #pragma once
 
@@ -53,9 +56,11 @@ struct Elem<double> {
   static constexpr int VEC = 2;
 };
 
-// The accumulator of T (`type`) and the register vector the kernels
-// multiply and sum rows in (`V`, W columns of `type`): a float4 for float
-// and bf16 inputs, a double2, one 16-byte load, for double.
+// The compute type of T (`type`), which is also its default accumulator, and
+// the register vector the kernels multiply and sum rows in (`V`, W columns
+// of `type`): a float4 for float and bf16 inputs, a double2, one 16-byte
+// load, for double. Acc<S>::V is also the register vector of an accumulator
+// S (float or double).
 template <typename T>
 struct Acc {
   using type = float;
@@ -109,6 +114,29 @@ __device__ __forceinline__ double dot_v(double2 a, double2 b, double dot) {
   return fma(a.y, b.y, dot);
 }
 
+// v's columns as double2 vectors (lo: x, y; hi: z, w): a float vector of the
+// compute type summed in a double accumulator.
+__device__ __forceinline__ void widen(float4 v, double2& lo, double2& hi) {
+  lo = make_double2(static_cast<double>(v.x), static_cast<double>(v.y));
+  hi = make_double2(static_cast<double>(v.z), static_cast<double>(v.w));
+}
+
+__device__ __forceinline__ double2 add_v(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float4 add_v(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// dot + <a, b> in double over float vectors: each product rounded to float
+// (the compute type), cast to double, then added in column order.
+__device__ __forceinline__ double dot_wide(float4 a, float4 b, double dot) {
+  dot += static_cast<double>(a.x * b.x);
+  dot += static_cast<double>(a.y * b.y);
+  dot += static_cast<double>(a.z * b.z);
+  return dot + static_cast<double>(a.w * b.w);
+}
+
 // The sum of the first `left` columns of v (all of them when left >= W).
 __device__ __forceinline__ float sum_first(float4 v, int left) {
   if (left < 4) v.w = 0.f;
@@ -119,6 +147,13 @@ __device__ __forceinline__ float sum_first(float4 v, int left) {
 __device__ __forceinline__ double sum_first(double2 v, int left) {
   if (left < 2) v.y = 0.0;
   return v.x + v.y;
+}
+// The same sum in a double accumulator over a float vector: each column cast
+// to double before it is added.
+__device__ __forceinline__ double sum_first_wide(float4 v, int left) {
+  const double x = v.x, y = left > 1 ? v.y : 0.f, z = left > 2 ? v.z : 0.f;
+  const double w = left > 3 ? v.w : 0.f;
+  return (x + y) + (z + w);
 }
 
 template <typename T>
@@ -142,6 +177,14 @@ __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 __device__ __forceinline__ void store_elem(double* p, double v) { *p = v; }
+// A double accumulator's result written to a narrower output: rounded to
+// float, then (bf16) to bf16, as torch converts a float64 tensor.
+__device__ __forceinline__ void store_elem(float* p, double v) {
+  *p = static_cast<float>(v);
+}
+__device__ __forceinline__ void store_elem(__nv_bfloat16* p, double v) {
+  *p = __float2bfloat16(static_cast<float>(v));
+}
 
 // The two bf16 values packed in a 32-bit word, as floats (the lower half
 // holds the lower column).

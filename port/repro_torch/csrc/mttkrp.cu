@@ -20,8 +20,9 @@
 // per bucket, shared-memory output rows, no global atomics; row gathers as
 // 16-byte loads from factors padded to a 16-byte row stride; the tile's
 // slots per thread per step (two by default) for loads in flight;
-// per-thread running sums flushed to the shared rows only when a thread's
-// row changes (scatter_rows.cuh).
+// per-thread running sums flushed to the warp's shared slab of the rows
+// only when a thread's row changes, the slabs summed in warp order at the
+// end, so the output is the same every run (scatter_rows.cuh).
 #include "bucket_rows.cuh"
 
 extern "C" int repro_mttkrp_bucketed_f32(

@@ -3,8 +3,8 @@
 // replaces src/repro/kernels/mttkrp.py:mttkrp_pallas on float64 operands
 // (mttkrp.cu has the float entry and the kernel's notes). Values and factor
 // rows are read as double, rows padded to a multiple of 2 values (16
-// bytes); the sums are double in registers and shared memory (native
-// shared-memory atomicAdd on double), and the output is written in double.
+// bytes); the sums are double in registers and in the warps' shared slabs
+// (scatter_rows.cuh), and the output is written in double.
 // Its own source, so nvcc compiles it beside the other instantiations.
 #include "bucket_rows.cuh"
 

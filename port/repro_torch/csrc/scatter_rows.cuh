@@ -3,26 +3,30 @@
 // Replaces src/repro/kernels/tile.py:scatter_rows, the reference's in-kernel
 // primitive (one-hot MXU product or segmented cumsum over a monotone key).
 //
-// A CTA owns one bucket's block_rows output rows and accumulates them in
-// shared memory (row stride RS values of the accumulator type A: float for
-// float and bf16 inputs, double for double, common.cuh Acc); no other CTA
-// writes those rows, so no global atomics are needed. The key of a slot
-// is local_row for a valid slot and block_rows (matches no output row)
-// otherwise, the reference's where(valid, local_row, block_rows): padding
-// slots carry local_row 0, so keying on local_row alone would scatter them
-// into row 0.
+// A CTA owns one bucket's block_rows output rows; no other CTA writes them,
+// so no global atomics are needed. Each warp of the CTA sums into a slab of
+// its own in shared memory, (block_rows, RS) values of the accumulator type
+// A (float for float and bf16 inputs, double for double inputs or a double
+// accumulator, common.cuh), and at the end of the bucket the CTA sums the
+// slabs in warp order (bucket_rows.cuh). The key of a slot is local_row for a
+// valid slot and block_rows (matches no output row) otherwise, the
+// reference's where(valid, local_row, block_rows): padding slots carry
+// local_row 0, so keying on local_row alone would scatter them into row 0.
 //
 // Running sums: each thread keeps the sum of its own slots' contributions in
 // registers (RowSum::acc) together with the row they belong to (RowSum::row)
-// and adds it to the shared row only when its key changes, and once at the
+// and adds it to its warp's slab only when its key changes, and once at the
 // end. A bucket's slots are sorted by row and a thread walks them in slot
 // order, so it flushes at most block_rows + 1 times per bucket however many
 // slots it takes. Keys in any other order give the same sums, with more
-// flushes. A flush is warp-wide: when every flushing lane of the warp flushes
-// the same row (a row boundary inside the warp's slots, or the end of the
-// bucket), the warp sums each column with shuffles and one lane adds it;
-// otherwise each flushing lane adds its own. The shared-memory atomics make
-// the order of the sum, and so its last bits, vary from run to run.
+// flushes. A flush is warp-wide: the warp takes the rows its flushing lanes
+// hold one at a time, lowest lane first (one row when the flushing lanes
+// share it, as at a row boundary inside the warp's slots or at the end of
+// the bucket); for each it sums each column over the lanes flushing that row
+// with a butterfly of shuffles, and one lane adds the sum to the slab with a
+// plain add. A warp's flushes reach its slab in program order and the
+// shuffle tree is fixed, so every sum is taken in one order: two launches on
+// the same inputs give bit-identical outputs.
 //
 // Every lane of the warp must call RowSum::visit and RowSum::finish together
 // (the capacity loop is uniform across the CTA and blockDim.x is a multiple
@@ -53,20 +57,20 @@ __device__ __forceinline__ double2 warp_sum_v(double2 a) {
   return make_double2(sx, sy);
 }
 
-// Shared-memory atomic adds of v's columns to dst[0..W).
-__device__ __forceinline__ void atomic_add_v(float* dst, float4 v) {
-  atomicAdd(dst, v.x);
-  atomicAdd(dst + 1, v.y);
-  atomicAdd(dst + 2, v.z);
-  atomicAdd(dst + 3, v.w);
+// dst[0..W) += v's columns (plain shared-memory adds by one lane).
+__device__ __forceinline__ void add_to(float* dst, float4 v) {
+  dst[0] += v.x;
+  dst[1] += v.y;
+  dst[2] += v.z;
+  dst[3] += v.w;
 }
-__device__ __forceinline__ void atomic_add_v(double* dst, double2 v) {
-  atomicAdd(dst, v.x);
-  atomicAdd(dst + 1, v.y);
+__device__ __forceinline__ void add_to(double* dst, double2 v) {
+  dst[0] += v.x;
+  dst[1] += v.y;
 }
 
-// One thread's running sum over the (rows, RS) shared accumulator `ys` of
-// A (float or double); the first nq = RS / W of its QMAX register vectors
+// One thread's running sum over its warp's (rows, RS) shared slab `ys` of A
+// (float or double); the first nq = RS / W of its QMAX register vectors
 // (Acc<A>::V, W columns each) are live.
 template <int QMAX, typename A>
 struct RowSum {
@@ -81,29 +85,28 @@ struct RowSum {
     for (int q = 0; q < QMAX; ++q) acc[q] = splat(A(0));
   }
 
-  // Add acc to shared row `row` in the lanes where `on` holds.
+  // Add acc to slab row `row` in the lanes where `on` holds: one row at a
+  // time, the lowest flushing lane's first, each summed over its lanes.
   __device__ __forceinline__ void flush(bool on, A* ys, int RS, int nq) {
-    const unsigned m = __ballot_sync(FULL_MASK, on);
-    if (m == 0) return;
-    const int lead = __ffs(m) - 1;
-    const int r0 = __shfl_sync(FULL_MASK, row, lead);
-    if (__all_sync(FULL_MASK, !on || row == r0)) {
-      const bool lane_lead = (threadIdx.x & 31) == lead;
+    unsigned pending = __ballot_sync(FULL_MASK, on);
+    if (pending == 0) return;
+    const int lane = threadIdx.x & 31;
+    while (pending != 0) {
+      const int lead = __ffs(pending) - 1;
+      const int r0 = __shfl_sync(FULL_MASK, row, lead);
+      const bool mine = on && row == r0;
+      pending &= ~__ballot_sync(FULL_MASK, mine);
       A* dst = ys + r0 * RS;
 #pragma unroll
       for (int q = 0; q < QMAX; ++q) {
         if (q < nq) {
-          const V s = warp_sum_v(on ? acc[q] : splat(A(0)));
-          if (lane_lead) atomic_add_v(dst + W * q, s);
+          const V s = warp_sum_v(mine ? acc[q] : splat(A(0)));
+          if (lane == lead) add_to(dst + W * q, s);
         }
       }
-    } else if (on) {
-      A* dst = ys + row * RS;
-#pragma unroll
-      for (int q = 0; q < QMAX; ++q) {
-        if (q < nq) atomic_add_v(dst + W * q, acc[q]);
-      }
     }
+    // the next flush's adding lane reads what this one wrote
+    __syncwarp();
   }
 
   // Before a slot with `key` is added: flush and restart on a new row.

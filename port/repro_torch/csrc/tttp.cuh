@@ -3,8 +3,9 @@
 //
 // Replaces src/repro/kernels/tttp.py:tttp_pallas (body _tttp_kernel). The
 // kernel template, instantiated per element type by tttp.cu (float),
-// tttp_bf16.cu (__nv_bfloat16) and tttp_f64.cu (double), one nvcc process
-// each.
+// tttp_bf16.cu (__nv_bfloat16) and tttp_f64.cu (double), and with a double
+// accumulator S over float and bf16 inputs by tttp_f32_acc64.cu and
+// tttp_bf16_acc64.cu, one nvcc process each.
 //
 // What bounds it: bytes. Per nonzero it reads one value, one valid byte and
 // nd int32 indices and writes one value, (2 * e + 1 + 4*nd) bytes of HBM
@@ -24,7 +25,11 @@
 // scalar loads. A float load is one float4; a bf16 load is converted to two
 // float4s in registers and every product and sum is taken in float; a
 // double load is one double2 and every product and sum is double (the
-// register vectors V of W columns, Acc<T> in common.cuh). Each thread takes
+// register vectors V of W columns, Acc<T> in common.cuh). With a double
+// accumulator over float or bf16 inputs the products stay float and each
+// column of a product is cast to double before it is summed; the sum over R
+// and values[n] * sum are double, and the result is rounded once to T (the
+// reference's accum_dtype "float64"). Each thread takes
 // NZ nonzeros per step at a stride of blockDim.x, so every value, valid,
 // index and output stream is read coalesced, and it issues all of the
 // step's index loads, then all of its row loads for QB register vectors,
@@ -55,7 +60,7 @@ struct PresentFactors {
 
 // NZ, the nonzeros a thread takes per step, is the launch's tile
 // (KernelTile.per_thread in kernels/tile.py), instantiated for 1, 2 and 4.
-template <int NP, int NZ, typename T>
+template <int NP, int NZ, typename T, typename S = typename Acc<T>::type>
 __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
     const T* __restrict__ values, const int* __restrict__ indices,
     const unsigned char* __restrict__ valid, long long m, int nd,
@@ -81,9 +86,9 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
         row[s][j] = static_cast<long long>(i) * RS;
       }
     }
-    A acc[NZ];
+    S acc[NZ];
 #pragma unroll
-    for (int s = 0; s < NZ; ++s) acc[s] = A(0);
+    for (int s = 0; s < NZ; ++s) acc[s] = S(0);
     for (int q0 = 0; q0 < nq; q0 += QB) {
       V p[NZ][QB];
 #pragma unroll
@@ -112,7 +117,13 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
 #pragma unroll
         for (int q = 0; q < QB; ++q) {
           const int left = R - W * (q0 + q);  // columns of this vector < R
-          if (left > 0) acc[s] += sum_first(p[s][q], left);
+          if (left > 0) {
+            if constexpr (sizeof(S) > sizeof(A)) {
+              acc[s] += sum_first_wide(p[s][q], left);
+            } else {
+              acc[s] += sum_first(p[s][q], left);
+            }
+          }
         }
       }
     }
@@ -120,13 +131,14 @@ __global__ void __launch_bounds__(MAX_THREADS) tttp_kernel(
     for (int s = 0; s < NZ; ++s) {
       const long long n = n0 + s * blockDim.x;
       if (n < m) {
-        store_elem(out + n, ok[s] ? to_acc(values[n]) * acc[s] : A(0));
+        store_elem(out + n, ok[s] ? static_cast<S>(to_acc(values[n])) * acc[s]
+                                  : S(0));
       }
     }
   }
 }
 
-template <int NP, int NZ, typename T>
+template <int NP, int NZ, typename T, typename S>
 cudaError_t launch_nz(const T* values, const int* indices,
                       const unsigned char* valid, long long m, int nd,
                       const PresentFactors<T>& f, int R, int RS, T* out,
@@ -134,48 +146,48 @@ cudaError_t launch_nz(const T* values, const int* indices,
   const long long step = static_cast<long long>(NZ) * threads;
   long long blocks = (m + step - 1) / step;
   if (blocks > MAX_GRID) blocks = MAX_GRID;
-  tttp_kernel<NP, NZ, T><<<static_cast<unsigned>(blocks), threads, 0,
-                            stream>>>(
+  tttp_kernel<NP, NZ, T, S><<<static_cast<unsigned>(blocks), threads, 0,
+                               stream>>>(
       values, indices, valid, m, nd, f, R, RS, out);
   return cudaGetLastError();
 }
 
 // The instantiation for the tile's per-thread depth (1, 2 or 4, checked by
 // the caller).
-template <int NP, typename T>
+template <int NP, typename T, typename S>
 cudaError_t launch_np(const T* values, const int* indices,
                       const unsigned char* valid, long long m, int nd,
                       const PresentFactors<T>& f, int R, int RS, T* out,
                       int threads, int per_thread, cudaStream_t stream) {
   switch (per_thread) {
     case 1:
-      return launch_nz<NP, 1>(values, indices, valid, m, nd, f, R, RS, out,
-                              threads, stream);
+      return launch_nz<NP, 1, T, S>(values, indices, valid, m, nd, f, R,
+                                    RS, out, threads, stream);
     case 2:
-      return launch_nz<NP, 2>(values, indices, valid, m, nd, f, R, RS, out,
-                              threads, stream);
+      return launch_nz<NP, 2, T, S>(values, indices, valid, m, nd, f, R,
+                                    RS, out, threads, stream);
     default:
-      return launch_nz<NP, 4>(values, indices, valid, m, nd, f, R, RS, out,
-                              threads, stream);
+      return launch_nz<NP, 4, T, S>(values, indices, valid, m, nd, f, R,
+                                    RS, out, threads, stream);
   }
 }
 
-template <int NP, typename T>
+template <int NP, typename T, typename S>
 const void* tttp_entry(int per_thread) {
   switch (per_thread) {
-    case 1: return reinterpret_cast<const void*>(tttp_kernel<NP, 1, T>);
-    case 2: return reinterpret_cast<const void*>(tttp_kernel<NP, 2, T>);
-    case 4: return reinterpret_cast<const void*>(tttp_kernel<NP, 4, T>);
+    case 1: return reinterpret_cast<const void*>(tttp_kernel<NP, 1, T, S>);
+    case 2: return reinterpret_cast<const void*>(tttp_kernel<NP, 2, T, S>);
+    case 4: return reinterpret_cast<const void*>(tttp_kernel<NP, 4, T, S>);
     default: return nullptr;
   }
 }
 
-// The launcher of tttp.cu, tttp_bf16.cu and tttp_f64.cu. values, the factor
-// rows and out are of T. factors: nd pointers (NULL for an absent factor, at
-// least one present), each to rows of RS elements whose first R columns are
-// the factor's, 16-byte aligned, with RS a multiple of VEC and at least R
-// rounded up to VEC.
-template <typename T>
+// The launcher of tttp.cu, tttp_bf16.cu, tttp_f64.cu and the *_acc64.cu
+// twins. values, the factor rows and out are of T, the sums of S. factors:
+// nd pointers (NULL for an absent factor, at least one present), each to
+// rows of RS elements whose first R columns are the factor's, 16-byte
+// aligned, with RS a multiple of VEC and at least R rounded up to VEC.
+template <typename T, typename S = typename Acc<T>::type>
 int launch_tttp(const void* values, const void* indices, const void* valid,
                 long long m, int nd, void** factors, int R, int RS, void* out,
                 int threads, int per_thread, void* stream) {
@@ -207,33 +219,41 @@ int launch_tttp(const void* values, const void* indices, const void* valid,
   const int p = per_thread;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (np) {
-    case 1: return launch_np<1>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 2: return launch_np<2>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 3: return launch_np<3>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 4: return launch_np<4>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 5: return launch_np<5>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 6: return launch_np<6>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    case 7: return launch_np<7>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
-    default: return launch_np<8>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 1:
+      return launch_np<1, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 2:
+      return launch_np<2, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 3:
+      return launch_np<3, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 4:
+      return launch_np<4, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 5:
+      return launch_np<5, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 6:
+      return launch_np<6, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    case 7:
+      return launch_np<7, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
+    default:
+      return launch_np<8, T, S>(v, ix, ok, m, nd, f, R, RS, o, threads, p, s);
   }
 }
 
-// tttp_kernel<np, per_thread, T>'s attributes, for repro_kernel_attributes
+// tttp_kernel<np, per_thread, T, S>'s attributes, for repro_kernel_attributes
 // (attributes.cu); an instantiation that does not exist is
 // cudaErrorInvalidValue.
-template <typename T>
+template <typename T, typename S = typename Acc<T>::type>
 cudaError_t tttp_attributes_of(int np, int per_thread, int threads,
                                long long smem, int* out) {
   const void* fn = nullptr;
   switch (np) {
-    case 1: fn = tttp_entry<1, T>(per_thread); break;
-    case 2: fn = tttp_entry<2, T>(per_thread); break;
-    case 3: fn = tttp_entry<3, T>(per_thread); break;
-    case 4: fn = tttp_entry<4, T>(per_thread); break;
-    case 5: fn = tttp_entry<5, T>(per_thread); break;
-    case 6: fn = tttp_entry<6, T>(per_thread); break;
-    case 7: fn = tttp_entry<7, T>(per_thread); break;
-    case 8: fn = tttp_entry<8, T>(per_thread); break;
+    case 1: fn = tttp_entry<1, T, S>(per_thread); break;
+    case 2: fn = tttp_entry<2, T, S>(per_thread); break;
+    case 3: fn = tttp_entry<3, T, S>(per_thread); break;
+    case 4: fn = tttp_entry<4, T, S>(per_thread); break;
+    case 5: fn = tttp_entry<5, T, S>(per_thread); break;
+    case 6: fn = tttp_entry<6, T, S>(per_thread); break;
+    case 7: fn = tttp_entry<7, T, S>(per_thread); break;
+    case 8: fn = tttp_entry<8, T, S>(per_thread); break;
     default: break;
   }
   return func_attributes(fn, threads, smem, out);

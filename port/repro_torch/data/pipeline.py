@@ -12,12 +12,18 @@ a multiple of the data-axis size and each rank keeps its block of the
 nonzero slots (``tensor``), with bucket views over its own nonzeros only.
 Every rank ingests the same logical tensor (the same seed or stream), so
 the blocks partition it.
+
+For language-model batches :func:`lm_batches` wraps
+``synthetic.token_stream`` in :func:`prefetch`; under an ``AxisCtx`` each
+rank keeps its block of every batch's rows over the batch axes (the
+reference places the batch on a ``NamedSharding`` over them).
 """
 from __future__ import annotations
 
+import math
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
@@ -152,3 +158,35 @@ def prefetch(it: Iterator) -> Iterator:
             return
         room.release()
         yield item
+
+
+def lm_batches(generator: Optional[torch.Generator], vocab_size: int,
+               batch: int, seq_len: int, num_batches: int, ctx=None,
+               batch_axes: Sequence[str] = ("data",),
+               device: str = "cuda") -> Iterator[Dict[str, torch.Tensor]]:
+    """Token batches for an LM driver, made one ahead by :func:`prefetch`
+    (``synthetic.token_stream``). With ``ctx`` (a
+    ``core.distributed.AxisCtx``) each rank yields its block of every
+    batch's rows: the rows split into as many blocks as the batch axes'
+    sizes multiply to, this rank's block at its coordinates over those
+    axes flattened row-major (the reference's batch dimension sharded
+    over ``batch_axes``); ``batch`` must divide evenly."""
+    stream = synthetic.token_stream(generator, vocab_size, batch, seq_len,
+                                    num_batches, device=device)
+    if ctx is None:
+        yield from prefetch(stream)
+        return
+    sizes, coords = dict(ctx.sizes), dict(ctx.coords)
+    missing = [a for a in batch_axes if a not in sizes or a not in coords]
+    if missing:
+        raise ValueError(f"batch axes {missing} are not axes of {ctx!r}")
+    shards = math.prod(sizes[a] for a in batch_axes)
+    if batch % shards:
+        raise ValueError(f"batch {batch} does not split over {shards} "
+                         f"shards of {tuple(batch_axes)}")
+    index = 0
+    for a in batch_axes:
+        index = index * sizes[a] + coords[a]
+    rows = batch // shards
+    for b in prefetch(stream):
+        yield {k: v[index * rows:(index + 1) * rows] for k, v in b.items()}

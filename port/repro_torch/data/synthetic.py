@@ -8,6 +8,8 @@ generator's own device (so a paper-scale tensor is made on the card).
   480,189 × 17,770 × 2,182 at full scale): integer ratings 1..5 with
   Zipf-distributed user and movie popularity and a low-rank bias
   structure, mirroring the real dataset's statistics (Fig. 7b).
+* ``token_stream`` — synthetic language-model batches: Zipf-distributed
+  tokens (a = 1.05) with labels shifted by one.
 
 The reference draws from ``jax.random``; the two streams differ, so the port
 matches the reference in distribution only. Parity tests share arrays
@@ -132,3 +134,20 @@ def shuffle_and_pad(st: SparseTensor, generator: torch.Generator,
     valid = torch.cat([st.valid, st.valid.new_zeros(cap - st.cap)])
     perm = torch.randperm(cap, generator=generator, device=generator.device)
     return SparseTensor(idx[perm], vals[perm], valid[perm], st.shape, st.nnz)
+
+
+def token_stream(generator: Optional[torch.Generator], vocab_size: int,
+                 batch: int, seq_len: int, num_batches: int = 1,
+                 device: str = "cuda"):
+    """Synthetic LM batches: Zipf-distributed tokens (a = 1.05) with
+    shifted labels. Yields ``{"tokens": (batch, seq_len), "labels": (batch,
+    seq_len)}`` int32 tensors, ``labels[:, t] == tokens[:, t + 1]`` of one
+    drawn row of ``seq_len + 1`` tokens. Drawn from ``generator`` on its
+    device, a generator on ``device`` seeded 0 when none is given."""
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=device).manual_seed(0)
+    for _ in range(num_batches):
+        toks = _zipf_choice(vocab_size, batch * (seq_len + 1), 1.05, gen)
+        toks = toks.to(torch.int32).reshape(batch, seq_len + 1)
+        yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}

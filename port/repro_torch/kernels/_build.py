@@ -12,10 +12,13 @@ Every C entry point launches one kernel on the given stream and returns
 ``cudaGetLastError()``; :func:`launch` raises if that is not 0. A launch
 takes its threads per CTA and per-thread depth from a
 ``kernels.tile.KernelTile``. Each kernel is instantiated for float32,
-bfloat16 and float64 operands (:data:`KERNEL_DTYPES`), with one C entry
-point per element type (:func:`entry`); the bf16 and float64
-instantiations have sources of their own (``csrc/*_bf16.cu``,
-``csrc/*_f64.cu``), so nvcc builds them in parallel with the float ones.
+bfloat16 and float64 operands (:data:`KERNEL_DTYPES`), each summed in its
+own accumulator (float32 for the first two, float64 for the third), and
+for float32 and bfloat16 operands summed in float64 (:data:`VARIANTS`),
+with one C entry point per element type and accumulator (:func:`entry`);
+all but the float32 ones have sources of their own (``csrc/*_bf16.cu``,
+``csrc/*_f64.cu``, ``csrc/*_f32_acc64.cu``, ``csrc/*_bf16_acc64.cu``), so
+nvcc builds them in parallel.
 :func:`operand_dtype` checks that a launch's floating operands share one
 of those types. :func:`resource_usage` reads the compiler's
 registers and spills per instantiation from the build log, and
@@ -47,12 +50,20 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 
-# the element types the kernels are instantiated for: the suffix of their C
-# entry points, the dtype code of repro_kernel_attributes, and the name the
-# build log's mangled template argument gives
+# the element types the kernels are instantiated for, and the suffix of their
+# C entry points in their own accumulator
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
                  torch.float64: "f64"}
+# (element type, accumulator) of every instantiation: the suffix of its C
+# entry points and source files, and the dtype code of
+# repro_kernel_attributes
+VARIANTS = {(torch.float32, torch.float32): ("f32", 0),
+            (torch.bfloat16, torch.float32): ("bf16", 1),
+            (torch.float64, torch.float64): ("f64", 2),
+            (torch.float32, torch.float64): ("f32_acc64", 3),
+            (torch.bfloat16, torch.float64): ("bf16_acc64", 4)}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+# the name the build log's mangled template argument gives
 _MANGLED_DTYPES = {"f": "float32", "__nv_bfloat16": "bfloat16",
                    "d": "float64"}
 
@@ -63,13 +74,13 @@ _BUCKETED = (_P, _P, _P, _P, _L, _L, _I, _I, _PTRS, _P, _L, _I, _I, _I, _P,
 SIGNATURES = {
     # values, indices, valid, m, nd, factors[nd], R, RS (padded row
     # stride, in elements), out, threads, per_thread, stream
-    **{f"repro_tttp_{sfx}": _TTTP for sfx in KERNEL_DTYPES.values()},
+    **{f"repro_tttp_{sfx}": _TTTP for sfx, _ in VARIANTS.values()},
     # values (ω for the matvec), indices, local_row, valid, nb, C, nd, mode,
     # factors[nd], x, x_rows, R, RS (padded row stride, in elements),
     # block_rows, out, threads, per_thread, stream; the MTTKRP ignores x
     # and x_rows
     **{f"repro_{k}_bucketed_{sfx}": _BUCKETED
-       for k in ("mttkrp", "cg_matvec") for sfx in KERNEL_DTYPES.values()},
+       for k in ("mttkrp", "cg_matvec") for sfx, _ in VARIANTS.values()},
     # family, variant (NP or RMAX), per_thread, threads, dynamic shared
     # bytes, dtype code, out[5] (csrc/attributes.cu)
     "repro_kernel_attributes": (_I, _I, _I, _I, _L, _I,
@@ -80,15 +91,36 @@ FAMILY_CODES = {"tttp": 0, "mttkrp": 1, "cg_matvec": 2}
 
 
 def dtype_name(dtype: torch.dtype) -> str:
-    """``"float32"`` for ``torch.float32``: the key of the kernel modules'
-    ``launches_by_dtype``."""
+    """``"float32"`` for ``torch.float32``."""
     return str(dtype).removeprefix("torch.")
 
 
-def entry(name: str, dtype: torch.dtype) -> str:
+def natural_accumulator(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator an instantiation on ``dtype`` operands uses unless a
+    tile asks for float64: float64 for float64, float32 otherwise."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def variant_name(dtype: torch.dtype, acc: torch.dtype) -> str:
+    """The key of the kernel modules' ``launches_by_dtype`` for operands of
+    ``dtype`` summed in ``acc``: the element type's name (``"float32"``) in
+    its own accumulator, ``"float32/float64"`` in a wider one."""
+    if acc == natural_accumulator(dtype):
+        return dtype_name(dtype)
+    return f"{dtype_name(dtype)}/{dtype_name(acc)}"
+
+
+# every launches_by_dtype key, in VARIANTS' order
+VARIANT_NAMES = tuple(variant_name(dt, acc) for dt, acc in VARIANTS)
+
+
+def entry(name: str, dtype: torch.dtype,
+          acc: Optional[torch.dtype] = None) -> str:
     """The C launcher of kernel ``name`` (``tttp``, ``mttkrp_bucketed``,
-    ``cg_matvec_bucketed``) for operands of ``dtype``."""
-    return f"repro_{name}_{KERNEL_DTYPES[dtype]}"
+    ``cg_matvec_bucketed``) for operands of ``dtype`` summed in ``acc``
+    (default: :func:`natural_accumulator`)."""
+    acc = natural_accumulator(dtype) if acc is None else acc
+    return f"repro_{name}_{VARIANTS[(dtype, acc)][0]}"
 
 _lock = threading.Lock()
 _lib = None
@@ -168,22 +200,37 @@ Instantiation = Tuple[str, Tuple]
 
 def kernel_name(mangled: str) -> Optional[Instantiation]:
     """``("tttp_kernel", (3, 2, "float32"))`` or ``("bucket_rows_kernel",
-    (16, 1, 2, "bfloat16"))`` (a bool argument as 0 or 1, the element type
-    last) from a mangled entry-function name, None for any other function.
-    A name with integer template arguments only gives those alone."""
+    (16, 1, 2, "bfloat16"))`` (a bool argument as 0 or 1, then the element
+    type) from a mangled entry-function name, None for any other function.
+    The accumulator follows the element type only where it is wider than
+    :func:`natural_accumulator`'s: ``("tttp_kernel", (3, 2, "float32",
+    "float64"))``. A name with integer template arguments only gives those
+    alone."""
     m = re.search(r"([a-z_]+_kernel)I((?:L[a-z]\d+E)+)", mangled)
     if m is None:
         return None
     args = tuple(int(a) for a in re.findall(r"L[a-z](\d+)E", m.group(2)))
     rest = mangled[m.end():]
-    # a builtin type is one letter; a class type its name's length, then
-    # the name
-    t = re.match(r"(?:([a-z])|(\d+))", rest)
-    if t is not None and t.group(1):
-        args += (_MANGLED_DTYPES.get(t.group(1), t.group(1)),)
-    elif t is not None:
-        name = rest[t.end():t.end() + int(t.group(2))]
-        args += (_MANGLED_DTYPES.get(name, name),)
+    types = []
+    # the type arguments up to the list's end: a builtin type is one
+    # letter; a class type its name's length, then the name
+    while rest and rest[0] != "E":
+        t = re.match(r"(?:([a-z])|(\d+))", rest)
+        if t is None:
+            break
+        if t.group(1):
+            name, rest = t.group(1), rest[t.end():]
+        else:
+            end = t.end() + int(t.group(2))
+            name, rest = rest[t.end():end], rest[end:]
+        types.append(_MANGLED_DTYPES.get(name, name))
+    if types:
+        dtype = getattr(torch, types[0], None)
+        acc = getattr(torch, types[1], None) if len(types) > 1 else None
+        keep_acc = (isinstance(dtype, torch.dtype)
+                    and isinstance(acc, torch.dtype)
+                    and acc != natural_accumulator(dtype))
+        args += tuple(types[:2] if keep_acc else types[:1])
     return m.group(1), args
 
 
@@ -222,23 +269,27 @@ def resource_usage(log: Optional[str] = None
 
 def kernel_attributes(family: str, variant: int, per_thread: int,
                       threads: int, smem: int = 0,
-                      dtype: torch.dtype = torch.float32) -> Dict[str, int]:
+                      dtype: torch.dtype = torch.float32,
+                      acc: Optional[torch.dtype] = None) -> Dict[str, int]:
     """What the card says of one instantiation (``variant`` is TTTP's NP or
-    the bucketed body's RMAX, ``dtype`` its element type): ``registers``,
+    the bucketed body's RMAX, ``dtype`` its element type, ``acc`` its
+    accumulator, default :func:`natural_accumulator`): ``registers``,
     ``local_bytes`` and ``static_smem`` per ``cudaFuncGetAttributes``,
     ``max_threads``, and ``blocks_per_sm``, the CTAs of ``threads`` threads
     and ``smem`` bytes of dynamic shared memory one SM holds. Raises if the
     instantiation does not exist."""
     out = (ctypes.c_int * 5)()
     handle = lib()
+    acc = natural_accumulator(dtype) if acc is None else acc
+    code = VARIANTS.get((dtype, acc), (None, -1))[1]
     err = handle.repro_kernel_attributes(FAMILY_CODES[family], variant,
-                                         per_thread, threads, smem,
-                                         DTYPE_CODES.get(dtype, -1), out)
+                                         per_thread, threads, smem, code,
+                                         out)
     if err != 0:
         msg = handle.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"kernel attributes of {family} <{variant}, "
-                           f"{per_thread}, {dtype}>: CUDA error {err} "
-                           f"({msg})")
+                           f"{per_thread}, {dtype}, {acc}>: CUDA error "
+                           f"{err} ({msg})")
     return dict(zip(("registers", "local_bytes", "static_smem",
                      "max_threads", "blocks_per_sm"), out))
 

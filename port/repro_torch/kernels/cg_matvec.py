@@ -9,13 +9,15 @@ x[i]⟩``, with the bucket's rows of ``x`` held in shared memory) and the
 MTTKRP half (``y[i] += z[n]·KR[n]``). The factors and ``x`` reach the
 kernel as zero-padded copies with a 16-byte row stride
 (``kernels.mttkrp.pad_rows``); like the values, they are all float32, all
-bfloat16 or all float64, the kernel's three instantiations (a bf16 launch
-sums in float32 and writes bf16, a float64 launch sums in float64). It
-takes R up to ``kernels.mttkrp.MAX_RANK`` and refuses a wider one:
+bfloat16 or all float64 (a bf16 launch sums in float32 and writes bf16, a
+float64 launch sums in float64; a tile with ``accum_dtype="float64"`` sums
+float32 or bf16 operands in float64). It takes R up to
+``kernels.mttkrp.MAX_RANK`` and refuses a wider one:
 ``kernels.ops.cg_matvec_bucketed`` runs wider R as TTTP then MTTKRP. The
-launch shape is a ``kernels.tile.KernelTile``. ``launches`` counts the
-kernel's launches, ``launches_by_dtype`` splits them by element type, and
-``last_launch`` holds the (threads, per_thread) of the last one.
+launch shape and accumulator are a ``kernels.tile.KernelTile``.
+``launches`` counts the kernel's launches, ``launches_by_dtype`` splits
+them by element type and accumulator, and ``last_launch`` holds the
+(threads, per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.kernels.tile import DEFAULT_TILE, KernelTile
 from repro_torch.sparse.ccsr import RowBlockBuckets
 
 launches = 0
-launches_by_dtype = {"float32": 0, "bfloat16": 0, "float64": 0}
+launches_by_dtype = dict.fromkeys(_build.VARIANT_NAMES, 0)
 last_launch = None
 
 
@@ -43,10 +45,11 @@ def cg_matvec_cuda(buckets: RowBlockBuckets,
     true row count."""
     global launches, last_launch
     r = x.shape[1]
-    table = check_buckets(buckets, factors, r, x)
+    table = check_buckets(buckets, factors, r, x, tile)
     out = launch_bucketed("cg_matvec_bucketed", buckets, table, x, r, tile)
     if buckets.num_blocks:
+        dt = buckets.values.dtype
         launches += 1
-        launches_by_dtype[_build.dtype_name(buckets.values.dtype)] += 1
+        launches_by_dtype[_build.variant_name(dt, tile.accumulator(dt))] += 1
         last_launch = (tile.threads, tile.per_thread)
     return out

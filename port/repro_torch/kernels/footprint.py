@@ -6,15 +6,19 @@ What limits a CUDA launch is what one CTA holds on an SM, so this module
 prices that, per CTA, from a :class:`~repro_torch.kernels.tile.KernelTile`
 and the workload's geometry alone (no launch):
 
-* dynamic shared memory, exact: ``a · block_rows · RS`` bytes for the
-  bucketed body's output rows (``csrc/bucket_rows.cuh``), twice that for
-  the fused matvec (x's rows too), held in the accumulator type, ``a`` = 4
-  bytes (float, for float32 and bf16 operands) or 8 (double, for float64
-  ones), RS the widest launch's padded row in elements (R rounded up to a
-  16-byte vector, 4 floats, 8 bf16 values or 2 doubles, at most 128); none
-  for TTTP;
+* dynamic shared memory, exact (``csrc/bucket_rows.cuh`` ``bucket_smem``):
+  ``a · warps · block_rows · RS`` bytes for the bucketed body's output rows,
+  one slab per warp of the CTA (the deterministic in-bucket sum,
+  ``csrc/scatter_rows.cuh``), held in the accumulator, ``a`` = 4 bytes
+  (float, for float32 and bf16 operands in a float32 tile) or 8 (double,
+  for float64 operands or a float64 tile); and for the fused matvec
+  ``c · block_rows · RS`` bytes of x's rows in the compute type, ``c`` = 4
+  (float32 and bf16 operands) or 8 (float64); RS the widest launch's padded
+  row in elements (R rounded up to a 16-byte vector, 4 floats, 8 bf16
+  values or 2 doubles, at most 128); none for TTTP;
 * registers per thread and static shared memory: the compiler's counts
-  for the instantiation the launch takes (its element type included),
+  for the instantiation the launch takes (its element type and
+  accumulator included),
   from the build log
   (``_build.resource_usage``), or, before a build, the launch-bounds cap
   of 255 registers and no static shared memory;
@@ -100,20 +104,35 @@ def row_width(rank: int, dtype: torch.dtype = torch.float32) -> int:
     return padded_width(min(rank, MAX_RANK), dtype)
 
 
-def accum_bytes(dtype: torch.dtype) -> int:
-    """Bytes of one shared-memory value of the bucketed body on ``dtype``
-    operands: its accumulator, double for float64, float otherwise."""
+def accum_bytes(dtype: torch.dtype,
+                acc: Optional[torch.dtype] = None) -> int:
+    """Bytes of one accumulator value of the bucketed body on ``dtype``
+    operands summed in ``acc`` (default: their own accumulator, double for
+    float64, float otherwise)."""
+    acc = _build.natural_accumulator(dtype) if acc is None else acc
+    return acc.itemsize
+
+
+def compute_bytes(dtype: torch.dtype) -> int:
+    """Bytes of one value of the compute type of ``dtype`` operands (x's
+    shared rows in the fused matvec): double for float64, float
+    otherwise."""
     return 8 if dtype == torch.float64 else 4
 
 
 def dynamic_smem_bytes(block_rows: int, rank: int, fused: bool,
-                       dtype: torch.dtype = torch.float32) -> int:
-    """Dynamic shared memory of one bucketed CTA on ``dtype`` operands: its
-    ``block_rows`` output rows of RS accumulator values, and as many rows of
-    x when ``fused`` (x is held in the accumulator type whatever its input
-    type)."""
-    return (accum_bytes(dtype) * block_rows * row_width(rank, dtype)
-            * (2 if fused else 1))
+                       dtype: torch.dtype = torch.float32,
+                       threads: int = MAX_THREADS,
+                       acc: Optional[torch.dtype] = None) -> int:
+    """Dynamic shared memory of one bucketed CTA of ``threads`` threads on
+    ``dtype`` operands summed in ``acc``: one slab of ``block_rows`` output
+    rows of RS accumulator values per warp, and ``block_rows`` rows of x in
+    the compute type when ``fused`` (``csrc/bucket_rows.cuh``
+    ``bucket_smem``)."""
+    rows = block_rows * row_width(rank, dtype)
+    warps = -(-threads // 32)
+    return (accum_bytes(dtype, acc) * warps * rows
+            + (compute_bytes(dtype) * rows if fused else 0))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,19 +164,22 @@ def instantiation(family: str, geom: KernelGeometry, tile: KernelTile
                   ) -> Tuple[str, int, Tuple[str, Tuple]]:
     """(family the launch takes, template variant, build-log key) of the
     kernel ``family`` launches on ``geom`` under ``tile``: TTTP's NP (the
-    present factors) or the bucketed body's RMAX, with the tile's depth and
-    the geometry's element type."""
-    dt = _build.dtype_name(geom.dtype)
+    present factors) or the bucketed body's RMAX, with the tile's depth,
+    the geometry's element type and, where the tile widens it, the
+    accumulator (``_build.kernel_name``'s keys)."""
+    dt = (_build.dtype_name(geom.dtype),)
+    if tile.widens(geom.dtype):
+        dt += (_build.dtype_name(tile.accumulator(geom.dtype)),)
     if family == "tttp":
         np_ = len(geom.factor_rows)
-        return "tttp", np_, ("tttp_kernel", (np_, tile.per_thread, dt))
+        return "tttp", np_, ("tttp_kernel", (np_, tile.per_thread, *dt))
     if family not in ("mttkrp", "cg_matvec"):
         raise KeyError(f"unknown kernel family {family!r}")
     fused = _fused(family, geom.rank)
     rmax = next(v for v in RMAX_VARIANTS
                 if v >= row_width(geom.rank, geom.dtype))
     return (("cg_matvec" if fused else "mttkrp"), rmax,
-            ("bucket_rows_kernel", (rmax, int(fused), tile.per_thread, dt)))
+            ("bucket_rows_kernel", (rmax, int(fused), tile.per_thread, *dt)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,11 +245,12 @@ def estimate_footprint(family: str, tile: KernelTile, geom: KernelGeometry,
     launched, variant, key = instantiation(family, geom, tile)
     parts: List[Tuple[str, int]] = []
     if launched != "tttp":
-        rows = (accum_bytes(geom.dtype) * geom.block_rows
-                * row_width(geom.rank, geom.dtype))
-        parts.append(("output rows", rows))
+        rows = geom.block_rows * row_width(geom.rank, geom.dtype)
+        acc = tile.accumulator(geom.dtype)
+        parts.append(("warp slabs", accum_bytes(geom.dtype, acc)
+                      * -(-tile.threads // 32) * rows))
         if launched == "cg_matvec":
-            parts.append(("x rows", rows))
+            parts.append(("x rows", compute_bytes(geom.dtype) * rows))
     usage = _build.resource_usage().get(key)
     regs, static, source = ((usage["registers"], usage["smem"], "build log")
                             if usage else

@@ -3,11 +3,15 @@ replaces the reference's ``kernels/mttkrp.py:mttkrp_pallas``, and what it
 shares with the fused CG matvec (``kernels/cg_matvec.py``).
 
 Both run one kernel body (``csrc/bucket_rows.cuh``): one CTA per CCSR
-bucket, which sums the bucket's ``block_rows`` output rows in shared memory
-from per-thread running sums (``csrc/scatter_rows.cuh``). The body is
-instantiated for float32, bfloat16 and float64 operands: a bf16 launch
-reads bf16 values, factor rows and x, accumulates in float32 and writes
-bf16; a float64 launch reads, accumulates and writes float64. The kernel
+bucket, which sums the bucket's ``block_rows`` output rows from per-thread
+running sums into one shared slab per warp and adds the slabs in warp
+order, so two launches on the same inputs give the same bits
+(``csrc/scatter_rows.cuh``). The body is instantiated for float32,
+bfloat16 and float64 operands: a bf16 launch reads bf16 values, factor
+rows and x, accumulates in float32 and writes bf16; a float64 launch
+reads, accumulates and writes float64; and a tile with
+``accum_dtype="float64"`` sums float32 or bf16 operands in float64 and
+writes their type (``csrc/*_acc64.cu``). The kernel
 gathers factor rows as 16-byte loads, so the wrappers hand it copies of the
 factors padded with zero columns to a row stride of 16 bytes, 4 floats, 8
 bf16 values or 2 doubles (:func:`pad_rows`); the zero columns add exact
@@ -19,9 +23,10 @@ and joins the tiles' outputs. (Passing a tile as a pointer into the full
 padded rows would need a row stride apart from the width the body computes,
 and separating the two changed how nvcc compiled the body for R ≤ 128.)
 The launch shape (threads per CTA, slots per thread) is a
-``kernels.tile.KernelTile``. ``launches`` counts the MTTKRP kernel's
-launches, ``launches_by_dtype`` splits them by element type, and
-``last_launch`` holds the (threads, per_thread) of the last one.
+``kernels.tile.KernelTile``, and so is the accumulator. ``launches``
+counts the MTTKRP kernel's launches, ``launches_by_dtype`` splits them by
+element type and accumulator, and ``last_launch`` holds the (threads,
+per_thread) of the last one.
 """
 from __future__ import annotations
 
@@ -42,7 +47,7 @@ MAX_RANK = 128
 ROW_BYTES = 16
 
 launches = 0
-launches_by_dtype = {"float32": 0, "bfloat16": 0, "float64": 0}
+launches_by_dtype = dict.fromkeys(_build.VARIANT_NAMES, 0)
 last_launch = None
 
 
@@ -75,13 +80,15 @@ def column_tiles(r: int) -> List[Tuple[int, int]]:
 
 
 def check_buckets(buckets: RowBlockBuckets, factors, r: int,
-                  x: Optional[torch.Tensor]) -> List[Optional[torch.Tensor]]:
+                  x: Optional[torch.Tensor],
+                  tile: KernelTile) -> List[Optional[torch.Tensor]]:
     """Check the bucket arrays, the factors and ``x`` (given for the fused
-    matvec) for launches over ``r`` columns, all of one element type
-    (float32, bfloat16 or float64), and the shared-memory rows of the
-    widest launch (its (block_rows, padded width) sums in the accumulator
-    type, and as many rows of x when fused). Returns the factor table the
-    kernels take: None at ``buckets.mode`` and for absent factors."""
+    matvec) for launches over ``r`` columns in ``tile``, all of one element
+    type (float32, bfloat16 or float64), and the shared memory of the
+    widest launch (``footprint.dynamic_smem_bytes``: one slab of
+    (block_rows, padded width) sums in the accumulator type per warp, and
+    the rows of x when fused). Returns the factor table the kernels take:
+    None at ``buckets.mode`` and for absent factors."""
     dev = buckets.values.device
     nb, c = buckets.values.shape
     nd = buckets.indices.shape[-1]
@@ -108,7 +115,8 @@ def check_buckets(buckets: RowBlockBuckets, factors, r: int,
     # here, not at the top: footprint imports this module's MAX_RANK
     from repro_torch.kernels import footprint
     smem = footprint.dynamic_smem_bytes(buckets.block_rows, r, x is not None,
-                                        dt)
+                                        dt, tile.threads,
+                                        tile.accumulator(dt))
     if smem > footprint.SMEM_PER_BLOCK_OPTIN:
         raise ValueError(f"{smem} B of shared-memory rows exceed the "
                          f"{footprint.SMEM_PER_BLOCK_OPTIN} B a CTA may use")
@@ -126,20 +134,20 @@ def launch_bucketed(name: str, buckets: RowBlockBuckets,
     ``cg_matvec_bucketed`` when ``x`` is given) once over the ``r`` ≤
     ``MAX_RANK`` columns of a factor table from :func:`check_buckets`, on
     zero-padded copies of the factors and x, in ``tile``'s launch shape, in
-    the instantiation for the operands' element type. Returns
-    (nb·block_rows, r) in that type; launches nothing when there are no
-    buckets."""
+    the instantiation for the operands' element type and the tile's
+    accumulator. Returns (nb·block_rows, r) in that type; launches nothing
+    when there are no buckets."""
     nb, c = buckets.values.shape
     dev = buckets.values.device
     dt = buckets.values.dtype
-    tile.check_operands(dt)
+    acc = tile.accumulator(dt)
     out = torch.empty(nb * buckets.block_rows, r, dtype=dt, device=dev)
     if nb == 0:
         return out
     padded = [None if f is None else pad_rows(f) for f in table]
     xp = None if x is None else pad_rows(x)
     with torch.cuda.device(dev):
-        _build.launch(_build.entry(name, dt), buckets.values.data_ptr(),
+        _build.launch(_build.entry(name, dt, acc), buckets.values.data_ptr(),
                       buckets.indices.data_ptr(),
                       buckets.local_row.data_ptr(), buckets.valid.data_ptr(),
                       nb, c, buckets.indices.shape[-1], buckets.mode,
@@ -166,7 +174,9 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
     if not other:
         raise ValueError("MTTKRP requires at least one non-target factor")
     r = other[0].shape[1]
-    table = check_buckets(buckets, factors, r, None)
+    table = check_buckets(buckets, factors, r, None, tile)
+    dt = buckets.values.dtype
+    variant = _build.variant_name(dt, tile.accumulator(dt))
     outs = []
     for c0, w in column_tiles(r):
         # a column tile of all R columns is the factor itself (same storage)
@@ -175,6 +185,6 @@ def mttkrp_cuda(buckets: RowBlockBuckets,
                                     w, tile))
         if buckets.num_blocks:
             launches += 1
-            launches_by_dtype[_build.dtype_name(buckets.values.dtype)] += 1
+            launches_by_dtype[variant] += 1
             last_launch = (tile.threads, tile.per_thread)
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)

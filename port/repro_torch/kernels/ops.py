@@ -9,12 +9,16 @@ switch and no fallback between the two.
 
 Element types follow the reference (``kernels/ops.py:_out_dtype``): the
 kernels take float32, bfloat16 or float64 operands, keep the Hadamard chain
-and every sum in float32 for the first two and in float64 for the third
-(the reference's ``accum_dtype``), and write their operands' type; a result
-has the promoted type of the values (x for the Gram matvec) and the
-factors, on either device. Mixed inputs are promoted on the card before the
-launch, over every floating operand (``torch.result_type``'s rule, the
-reference's ``jnp.result_type``): each kernel takes one element type. A
+in float32 for the first two and in float64 for the third, sum in the
+tile's accumulator (the reference's ``KernelTile.accum_dtype``: float32 or
+float64 for the first two, float64 always for the third), and write their
+operands' type; a result has the promoted type of the values (x for the
+Gram matvec) and the factors, on either device. On the CPU the plain
+versions take the same accumulator (``kernels.ref``'s ``acc_dtype``), so
+both devices compute the reference's function. Mixed inputs are promoted
+on the card before the launch, over every floating operand
+(``torch.result_type``'s rule, the reference's ``jnp.result_type``): each
+kernel takes one element type. A
 type no instantiation takes (float16) raises on the card. Results keep
 the reference's shapes: the kernels write padded outputs (``nb·block_rows``
 rows for the bucketed ones), which are sliced back to ``num_rows``. The
@@ -121,10 +125,11 @@ def _cast(t: Optional[torch.Tensor], dtype: torch.dtype):
 
 
 def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
-    """Per kernel, its launches split by element type (``float32``,
-    ``bfloat16``, ``float64``), zeroed with the counts: what shows which
-    instantiation ran. Eager launches only: a graph replay adds to the
-    totals alone."""
+    """Per kernel, its launches split by element type and accumulator
+    (``float32``, ``bfloat16``, ``float64`` in their own accumulator,
+    ``float32/float64`` and ``bfloat16/float64`` summed in float64), zeroed
+    with the counts: what shows which instantiation ran. Eager launches
+    only: a graph replay adds to the totals alone."""
     return {name: dict(mod.launches_by_dtype)
             for name, mod in _MODULES.items()}
 
@@ -132,6 +137,13 @@ def launch_counts_by_dtype() -> Dict[str, Dict[str, int]]:
 def _resolve_tile(family: str,
                   tile: Optional[ktile.KernelTile]) -> ktile.KernelTile:
     return tile if tile is not None else ktile.current_tile(family)
+
+
+def _plain_acc(tile: ktile.KernelTile,
+               dtype: torch.dtype) -> Optional[torch.dtype]:
+    """``acc_dtype`` of the plain versions for ``dtype`` operands under
+    ``tile``: its accumulator where it widens them, else None."""
+    return tile.accumulator(dtype) if tile.widens(dtype) else None
 
 
 def _refuse_grad(kernel: str, *tensors) -> None:
@@ -160,8 +172,8 @@ def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
     dt = _out_dtype(values, factors)
     with obs.span("kernel/tttp", m=values.shape[0], tile=t.short()) as sp:
         if not _on_card(values):
-            return sp.fence(kref.tttp_ref(values, indices, valid,
-                                          factors).to(dt))
+            return sp.fence(kref.tttp_ref(values, indices, valid, factors,
+                                          _plain_acc(t, dt)).to(dt))
         _refuse_grad("TTTP", values, *factors)
         return sp.fence(ktttp.tttp_cuda(
             _cast(values, dt), indices, valid,
@@ -207,7 +219,8 @@ def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
         if not _on_card(buckets.values):
             out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
                                            buckets.local_row, factors,
-                                           buckets.mode, buckets.block_rows)
+                                           buckets.mode, buckets.block_rows,
+                                           _plain_acc(t, dt))
             return sp.fence(out[:num_rows].to(dt))
         _refuse_grad("MTTKRP", buckets.values, *factors)
         if buckets.values.dtype != dt:
@@ -232,18 +245,22 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
     - wider R: TTTP over the same bucket view, ``z = ω·⟨KR, x_i⟩``
       (:func:`tttp_bucket_values`), then the bucketed MTTKRP with values z,
       one launch per column tile on the card, each in its own family's
-      current tile. The fused kernel keeps a Khatri-Rao row and x's rows
-      resident, which it cannot at that width."""
+      current tile with this call's accumulator (z is rounded to the
+      operands' type between the two). The fused kernel keeps a Khatri-Rao
+      row and x's rows resident, which it cannot at that width."""
     num_rows = num_rows or buckets.shape[buckets.mode]
     mode = buckets.mode
+    t = _resolve_tile("cg_matvec", tile)
     if x.shape[1] > kmttkrp.MAX_RANK:
+        def halves(family):
+            return dataclasses.replace(ktile.current_tile(family),
+                                       accum_dtype=t.accum_dtype)
         fs = list(factors)
         fs[mode] = x
-        z = tttp_bucket_values(buckets, fs)
+        z = tttp_bucket_values(buckets, fs, halves("tttp"))
         fs[mode] = None
         return mttkrp_bucketed(dataclasses.replace(buckets, values=z), fs,
-                               num_rows)
-    t = _resolve_tile("cg_matvec", tile)
+                               num_rows, halves("mttkrp"))
     dt = _out_dtype(x, factors)
     with obs.span("kernel/cg_matvec_bucketed", mode=mode, rows=num_rows,
                   tile=t.short()) as sp:
@@ -251,7 +268,8 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
             out = kref.cg_matvec_bucketed_ref(buckets.values,
                                               buckets.indices,
                                               buckets.local_row, factors, x,
-                                              mode, buckets.block_rows)
+                                              mode, buckets.block_rows,
+                                              _plain_acc(t, dt))
             return sp.fence(out[:num_rows].to(dt))
         _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
         kdt = _promoted(buckets.values, x, *factors)

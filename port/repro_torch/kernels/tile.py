@@ -14,16 +14,13 @@ A :class:`KernelTile` carries what the CUDA kernels really take at launch:
                   ``PER_THREAD_DEPTHS``;
 ``accum_dtype`` — the accumulator, ``"float32"`` or ``"float64"`` (the
                   reference's ``KernelTile.accum_dtype`` takes both):
-                  float32 and bfloat16 operands accumulate in float32,
-                  float64 operands in float64, in the float64
-                  instantiation (``csrc/*_f64.cu``) whichever the tile
-                  names. A tile asking for float64 over float32 or
-                  bfloat16 operands raises (:meth:`KernelTile.check_operands`):
-                  no instantiation widens a narrower input's sums, and
-                  running it in float32 would answer another question.
-                  So the field never changes a launch, and it takes no
-                  part in a tile's equality or hash: two tiles that
-                  differ only there are one launch and one cache key.
+                  float32 and bfloat16 operands accumulate in the tile's
+                  type, float64 in their own instantiations
+                  (``csrc/*_f32_acc64.cu``, ``csrc/*_bf16_acc64.cu``);
+                  float64 operands accumulate in float64 whichever the
+                  tile names (:meth:`KernelTile.accumulator`). The field
+                  picks the instantiation a launch takes, so it is part of
+                  a tile's equality and hash: the plan cache keys on it.
 
 Tiles are frozen, hashable and round-trip through JSON (the on-disk plan
 cache, ``planner.tuner``). The process-wide table below is what
@@ -65,15 +62,14 @@ class KernelTile:
     block_rows: int = 8
     threads: int = 256
     per_thread: int = 2
-    accum_dtype: str = dataclasses.field(default="float32", compare=False)
+    accum_dtype: str = "float32"
 
     def __post_init__(self):
         if self.accum_dtype not in ACCUM_DTYPES:
             raise ValueError(
                 f"accum_dtype {self.accum_dtype!r} not in "
-                f"{tuple(ACCUM_DTYPES)}: the CUDA kernels accumulate in "
-                f"float32 only for float32 and bfloat16 operands, and in "
-                f"float64 for float64 operands")
+                f"{tuple(ACCUM_DTYPES)}: no instantiation sums in it (the "
+                f"CUDA kernels accumulate in float32 only or in float64)")
         if self.block_rows < 1:
             raise ValueError("block_rows must be positive")
         if self.threads < 32 or self.threads % 32 or \
@@ -90,17 +86,18 @@ class KernelTile:
         return (f"br{self.block_rows}.t{self.threads}.p{self.per_thread}"
                 f".{ACCUM_DTYPES[self.accum_dtype]}")
 
-    def check_operands(self, dtype: torch.dtype) -> None:
-        """Raise unless a launch on ``dtype`` operands can keep this tile's
-        accumulator: float64 over float32 or bfloat16 operands is refused
-        (a float32-operand, float64-accumulator instantiation is ROADMAP.md
-        Queue B item 7); float64 operands always sum in float64."""
-        if self.accum_dtype == "float64" and dtype != torch.float64:
-            raise ValueError(
-                f"tile {self.short()} asks for a float64 accumulator over "
-                f"{dtype} operands: the kernels sum {dtype} in float32 and "
-                f"have no wider instantiation for it (ROADMAP.md Queue B "
-                f"item 7); pass float64 operands or a float32 tile")
+    def accumulator(self, dtype: torch.dtype) -> torch.dtype:
+        """The type a launch on ``dtype`` operands sums in: float64 for
+        float64 operands or a float64 tile, float32 otherwise."""
+        if dtype == torch.float64 or self.accum_dtype == "float64":
+            return torch.float64
+        return torch.float32
+
+    def widens(self, dtype: torch.dtype) -> bool:
+        """True when the tile sums ``dtype`` operands in a wider type than
+        their own instantiation does (float64 over float32 or bfloat16)."""
+        return self.accumulator(dtype) == torch.float64 and \
+            dtype != torch.float64
 
     def to_json(self) -> Dict:
         return dataclasses.asdict(self)

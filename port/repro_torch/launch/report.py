@@ -5,6 +5,8 @@ trajectory. The counterpart of the reference's ``launch/report.py``
 
     python -m repro_torch.launch.report --spec netflix-ci [--device cpu] \\
         [--repeats 5] [--out FILE]
+    python -m repro_torch.launch.report --dir DIR [--section dryrun] \\
+        [--out FILE]
 
 :func:`collect_perf` ingests the named experiment spec, runs the planned
 MTTKRP, TTTP and fused Gram matvec eagerly with tracing on (the planner's
@@ -16,10 +18,17 @@ process). The report goes to ``--out``,
 or to stdout without it: it never writes ``PERF.md``, which is kept by
 hand. Times from a CPU run describe the CPU, not the card.
 
-Left out until ``ROADMAP.md`` Queue A item 8: the reference's ``dryrun``
-and ``roofline`` record tables of pod dry runs. :func:`trajectory_tables`
-reads the port's own ``BENCH_torch_*.json`` only (the reference's
-``BENCH_*.json`` hold CPU and TPU times).
+``--dir`` renders the reference's two record tables instead: every
+``*.json`` dry-run record in DIR (:func:`load`, sorted by file name) as
+:func:`dryrun_table` (memory, HLO flops and collective bytes per device
+and the collective mix, every mesh) and :func:`roofline_table` (the
+compute, memory and collective terms of the 16x16 pod records, the
+dominant term and a note on it); ``--section`` picks one or both. The
+records are the JAX package's pod dry runs, written by its launcher: the
+tables word them as the reference does, and no number in them is the
+port's. :func:`trajectory_tables` reads the port's own
+``BENCH_torch_*.json`` only (the reference's ``BENCH_*.json`` hold CPU and
+TPU times).
 """
 from __future__ import annotations
 
@@ -120,6 +129,92 @@ def collect_perf(spec_name: str = "netflix-ci", repeats: int = 5,
             "machine": rooflines[0]["machine"]}
 
 
+def load(dir_: str) -> List[Dict]:
+    """The JSON records in ``dir_``, in file-name order."""
+    recs = []
+    for f in sorted(os.listdir(dir_)):
+        if f.endswith(".json"):
+            with open(os.path.join(dir_, f)) as fh:
+                recs.append(json.load(fh))
+    return recs
+
+
+def _fmt_bytes(b):
+    return f"{b / 2**30:.2f}"
+
+
+def _note(r) -> str:
+    """The reference's note on a record's dominant term."""
+    dom = r["dominant"]
+    if r["arch"].startswith("completion/"):
+        if dom == "collective":
+            return ("psum(model) of TTTP partials dominates; H-slice or "
+                    "row-shard factors to shrink payloads")
+        return ("gather/segment traffic dominates; fuse via the bucketed "
+                "Pallas kernels (no (m,R) intermediates)")
+    kinds = r.get("collective_by_kind", {})
+    top = max(kinds, key=kinds.get) if kinds else "none"
+    if dom == "collective":
+        return (f"{top} dominates wire bytes; overlap with compute or move "
+                "to reduce-scatter/seq-parallel residual")
+    if dom == "memory":
+        return ("HBM traffic bound; fuse elementwise chains / cast "
+                "accumulators bf16 / chunk the LM-head loss")
+    return "near compute roofline; improve MXU utilization (layout/fusion)"
+
+
+def dryrun_table(recs: List[Dict]) -> str:
+    """One row per dry-run record: arch, shape, mesh, GiB, HLO GFLOP and
+    collective GB per device, and the collective mix."""
+    lines = ["| arch | shape | mesh | GiB/dev | HLO GFLOP/dev | coll GB/dev "
+             "| collective mix |",
+             "|---|---|---|---|---|---|---|"]
+    for r in recs:
+        mix = ", ".join(f"{k.replace('all-', 'a')}×{v}"
+                        for k, v in sorted(
+                            r.get("collective_counts", {}).items()))
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['mesh']} | "
+            f"{_fmt_bytes(r['bytes_per_device'])} | "
+            f"{r['hlo_flops_per_device'] / 1e9:.1f} | "
+            f"{r['collective_bytes_per_device'] / 1e9:.2f} | {mix} |")
+    return "\n".join(lines)
+
+
+def roofline_table(recs: List[Dict]) -> str:
+    """One row per 16x16 record: the three terms in seconds, the dominant
+    one, the useful-flops ratio (n/a where it is meaningless: gather and
+    segment workloads have almost no dot flops), the roofline fraction and
+    :func:`_note`."""
+    lines = ["| arch | shape | compute s | memory s | collective s | "
+             "dominant | useful-flops ratio | roofline frac | note |",
+             "|---|---|---|---|---|---|---|---|---|"]
+    for r in recs:
+        if r["mesh"] != "16x16":
+            continue
+        uf = r.get("useful_flops_ratio")
+        uf_s = f"{uf:.3f}" if uf is not None and uf < 50 else "n/a"
+        lines.append(
+            f"| {r['arch']} | {r['shape']} | {r['compute_s']:.4f} | "
+            f"{r['memory_s']:.4f} | {r['collective_s']:.4f} | "
+            f"{r['dominant']} | {uf_s} | "
+            f"{r['roofline_fraction']:.3f} | {_note(r)} |")
+    return "\n".join(lines)
+
+
+def render_records(recs: List[Dict], section: str = "both") -> str:
+    """The ``--dir`` output: the dry-run and roofline sections, as the
+    reference prints them."""
+    parts = []
+    if section in ("dryrun", "both"):
+        parts.append("### Dry-run records (both meshes)\n\n"
+                     + dryrun_table(recs) + "\n")
+    if section in ("roofline", "both"):
+        parts.append("### Roofline (single pod, 16×16 = 256 chips)\n\n"
+                     + roofline_table(recs))
+    return "\n".join(parts)
+
+
 def plan_table(plans: Dict[str, Dict]) -> str:
     lines = ["| plan (expr \\| path \\| size) | kind | predicted s | "
              "measured mean s | measured min s | meas/pred |",
@@ -213,7 +308,22 @@ def main(argv=None):
                     help="write the report here (no default: stdout)")
     ap.add_argument("--bench-dir", default=".",
                     help="directory holding committed BENCH_torch_*.json")
+    ap.add_argument("--dir", default=None, metavar="DIR",
+                    help="render the dry-run records (*.json) in DIR "
+                         "instead of measuring")
+    ap.add_argument("--section", default="both",
+                    choices=["dryrun", "roofline", "both"],
+                    help="which record table --dir renders")
     args = ap.parse_args(argv)
+    if args.dir is not None:
+        text = render_records(load(args.dir), args.section)
+        if args.out is None:
+            print(text)
+        else:
+            with open(args.out, "w") as f:
+                f.write(text + "\n")
+            print(f"wrote {args.out}")
+        return text
     perf = collect_perf(args.spec, repeats=args.repeats, device=args.device)
     text = render_report(perf, args.bench_dir)
     if args.out is None:

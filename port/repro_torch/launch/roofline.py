@@ -21,12 +21,15 @@ SXM data sheet's (``obs.profile.Machine`` reads them, overridable by
 ``REPRO_PEAK_FLOPS``, ``REPRO_PEAK_FLOPS_F64``, ``REPRO_HBM_BW`` and
 ``REPRO_LINK_BW``): a float64 kernel's operations go over the FP64 peak,
 every other kernel's over the fp32 one (bf16 operands are summed in
-float32). The reference's ``model_flops`` and ``active_params`` (its LM
-cells) wait with ``ROADMAP.md`` Queue A item 8.
+float32), and a float64 accumulator's over the FP64 one.
+
+:func:`model_flops` and :func:`active_params` are the reference's LM
+accounting (its dry-run cells): plain arithmetic over a config object and
+a cell, the same formulas.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -53,12 +56,15 @@ def nbytes(*tensors) -> int:
 
 
 def bound(n_bytes: float, n_ops: float, machine: Machine = None,
-          elem_bytes: int = 4):
+          elem_bytes: int = 4, acc_bytes: Optional[int] = None):
     """Least time (ms) for the work and what sets it: bytes over the memory
-    rate or operations over the peak rate for the operands' type (the FP64
-    peak for 8-byte elements, the fp32 one otherwise), the larger."""
+    rate or operations over the peak rate for the type they are summed in
+    (``acc_bytes``, default ``elem_bytes``: the FP64 peak for 8 bytes, as
+    for float64 operands or a float64 accumulator over float32 or bf16
+    ones, the fp32 one otherwise), the larger."""
     machine = machine or Machine.from_env()
-    peak = machine.peak_flops_f64 if elem_bytes == 8 else machine.peak_flops
+    wide = (elem_bytes if acc_bytes is None else acc_bytes) == 8
+    peak = machine.peak_flops_f64 if wide else machine.peak_flops
     t_bytes = n_bytes / machine.hbm_bw * 1e3
     t_ops = n_ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -161,3 +167,53 @@ def profiler_terms(fn: Callable, *args) -> Dict[str, float]:
                                if e.name in MATMUL_OPS)),
             "profiler_flops": float(sum(e.flops for e in events)),
             "bytes": float(traffic.bytes), "collective_bytes": 0.0}
+
+
+def model_flops(cfg, cell) -> float:
+    """MODEL_FLOPS = 6·N·D (dense) / 6·N_active·D (MoE); decode counts one
+    token per sequence."""
+    n_active = active_params(cfg)
+    if cell.kind == "train":
+        tokens = cell.global_batch * cell.seq_len
+        return 6.0 * n_active * tokens
+    if cell.kind == "prefill":
+        tokens = cell.global_batch * cell.seq_len
+        return 2.0 * n_active * tokens
+    return 2.0 * n_active * cell.global_batch  # decode: 1 token/seq
+
+
+def active_params(cfg) -> float:
+    """Per-token active parameter count from the config (embeddings included
+    once; MoE counts top_k + shared experts)."""
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    hd = cfg.head_dim_()
+    per_attn = d * hd * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+    if cfg.attn_kind == "mla":
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        per_attn = (d * cfg.q_lora_rank + cfg.q_lora_rank * cfg.n_heads * qd
+                    + d * (cfg.kv_lora_rank + cfg.qk_rope_dim)
+                    + cfg.kv_lora_rank * cfg.n_heads
+                    * (cfg.qk_nope_dim + cfg.v_head_dim)
+                    + cfg.n_heads * cfg.v_head_dim * d)
+    ffn_active = 3 * d * f
+    if cfg.n_experts:
+        ffn_active = 3 * d * f * (cfg.top_k + cfg.n_shared_experts)
+    n = 0.0
+    for spec in cfg.group:
+        if spec.kind == "attn":
+            n += per_attn + (ffn_active if cfg.ffn_kind != "none" and f
+                             else 0)
+        elif spec.kind == "mamba2":
+            d_in = cfg.ssm_expand * d
+            n += d * (2 * d_in + 2 * cfg.ssm_state) + d_in * d
+        elif spec.kind == "mlstm":
+            n += 3 * d * hd * cfg.n_heads + cfg.n_heads * hd * d
+        elif spec.kind == "slstm":
+            n += 9 * d * d
+    n *= cfg.n_groups
+    n += 2 * d * v if not cfg.tie_embeddings else d * v
+    if cfg.encoder_layers:
+        # encoder blocks, and the decoder's cross-attention
+        n += cfg.encoder_layers * (per_attn + 3 * d * f) + \
+            cfg.n_layers * per_attn
+    return n

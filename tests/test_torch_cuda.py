@@ -6,8 +6,9 @@ installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance rtol = atol = 1e-4: shared-memory atomics change the order of the
-bucket sums from run to run."""
+Tolerance rtol = atol = 1e-4: the kernels sum in another order than the
+plain versions (in one order every run: two launches give the same bits,
+``test_bucketed_launches_repeat_bit_for_bit``)."""
 import dataclasses
 import math
 import os
@@ -35,6 +36,9 @@ from repro_torch.kernels import tttp as ktttp
 from repro_torch.planner import tuner
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+# launches_by_dtype with every variant at 0
+NO_LAUNCHES = dict.fromkeys(("float32", "bfloat16", "float64",
+                             "float32/float64", "bfloat16/float64"), 0)
 
 
 @pytest.fixture
@@ -255,19 +259,18 @@ def test_bf16_kernels_match_plain_versions(dev, r, sort_mode):
             mode, 8)[:st.shape[mode]], **BF16_TOL)
     by_dtype = kops.launch_counts_by_dtype()
     wide = r > kmttkrp.MAX_RANK
-    assert by_dtype["tttp"] == {"float32": 0, "bfloat16": 1 + 2 * wide,
-                                "float64": 0}
-    assert by_dtype["mttkrp"] == {"float32": 0,
+    assert by_dtype["tttp"] == {**NO_LAUNCHES, "bfloat16": 1 + 2 * wide}
+    assert by_dtype["mttkrp"] == {**NO_LAUNCHES,
                                   "bfloat16": 2 * (1 + wide) * (1 + wide),
                                   "float64": 0}
-    assert by_dtype["cg_matvec"] == {"float32": 0,
+    assert by_dtype["cg_matvec"] == {**NO_LAUNCHES,
                                      "bfloat16": 0 if wide else 2,
                                      "float64": 0}
 
 
 def _held_f64(got, want):
     """chip_smoke.py phase 2's float64 limit: rtol 1e-10 plus 1e-12 of the
-    largest plain entry (only the order of the shared atomics differs)."""
+    largest plain entry (only the order of the sums differs)."""
     assert got.dtype == torch.float64 and got.shape == want.shape
     scale = float(want.abs().max())
     err = (got - want).abs()
@@ -319,10 +322,10 @@ def test_mixed_inputs_promote_before_the_launch(dev):
     bo = st.with_values(torch.ones_like(st.values)).row_buckets(0, 8)
     out = kops.cg_matvec_bucketed(bo, f16, f16[0])
     assert out.dtype == torch.bfloat16
-    assert kops.launch_counts_by_dtype()["tttp"] == {
-        "float32": 1, "bfloat16": 0, "float64": 0}
-    assert kops.launch_counts_by_dtype()["cg_matvec"] == {
-        "float32": 1, "bfloat16": 0, "float64": 0}
+    assert kops.launch_counts_by_dtype()["tttp"] == {**NO_LAUNCHES,
+                                                     "float32": 1}
+    assert kops.launch_counts_by_dtype()["cg_matvec"] == {**NO_LAUNCHES,
+                                                          "float32": 1}
     out = kops.tttp_values(st.astype(torch.float64), fs)
     assert out.dtype == torch.float64
     assert kops.launch_counts_by_dtype()["tttp"]["float64"] == 1
@@ -778,18 +781,22 @@ def test_kernel_attributes_match_footprint_model(dev):
     _build.lib()
     usage = _build.resource_usage()
     assert usage, "no build log beside the library"
-    for depth, dt in ((d, t) for d in ktile.PER_THREAD_DEPTHS
-                      for t in (torch.float32, torch.bfloat16)):
-        name = _build.dtype_name(dt)
+    for depth, (dt, acc) in ((d, v) for d in ktile.PER_THREAD_DEPTHS
+                             for v in _build.VARIANTS):
+        # the element type, then the accumulator where it is wider
+        name = (_build.dtype_name(dt),) + (
+            () if acc == _build.natural_accumulator(dt)
+            else (_build.dtype_name(acc),))
         for family, variants, key in (
                 ("tttp", range(1, 9),
-                 lambda v: ("tttp_kernel", (v, depth, name))),
+                 lambda v: ("tttp_kernel", (v, depth, *name))),
                 ("mttkrp", footprint.RMAX_VARIANTS,
-                 lambda v: ("bucket_rows_kernel", (v, 0, depth, name))),
+                 lambda v: ("bucket_rows_kernel", (v, 0, depth, *name))),
                 ("cg_matvec", footprint.RMAX_VARIANTS,
-                 lambda v: ("bucket_rows_kernel", (v, 1, depth, name)))):
+                 lambda v: ("bucket_rows_kernel", (v, 1, depth, *name)))):
             for v in variants:
-                a = _build.kernel_attributes(family, v, depth, 256, 768, dt)
+                a = _build.kernel_attributes(family, v, depth, 256, 768, dt,
+                                             acc)
                 log = usage[key(v)]
                 assert a["registers"] == log["registers"], (family, v, depth,
                                                             name)
@@ -963,3 +970,84 @@ def test_ggn_iteration_in_float64_on_card_matches_the_cpu():
     for d, (g, w) in enumerate(zip(got.factors, want.factors)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-8, atol=1e-8,
                                    msg=lambda m: f"factor {d}: {m}")
+
+
+def _held_one_rounding(got, want, dtype):
+    """chip_smoke.py phase 2's limit for a float64 accumulator over
+    ``dtype`` operands: one unit in the last place of ``dtype`` at |plain|
+    plus 1e-12 of the largest plain entry (``want`` is float64)."""
+    assert got.dtype == dtype and got.shape == want.shape
+    want = want.to(dtype).double()
+    bits = {torch.float32: 24, torch.bfloat16: 8}[dtype]
+    _, e = torch.frexp(want.abs())
+    ulp = torch.ldexp(torch.ones_like(want), e - bits)
+    err = (got.double() - want).abs()
+    scale = float(want.abs().max())
+    assert bool((err <= ulp + 1e-12 * scale).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("r", [3, 10, 64])
+def test_float64_accumulator_kernels_match_plain_versions(dev, dtype, r):
+    """``KernelTile(accum_dtype="float64")`` over float32 and bf16 operands:
+    each kernel's ``<T, double>`` instantiation against its plain version
+    with a float64 accumulator within one rounding of the output type, and
+    the counts show those instantiations alone."""
+    tile = ktile.KernelTile(accum_dtype="float64")
+    f64 = torch.float64
+    st, fs = _problem(dev, 13, (60, 40, 30), 3000, r)
+    sd, fd = st.astype(dtype), [f.to(dtype) for f in fs]
+    kops.reset_launch_counts()
+    _held_one_rounding(kops.tttp_values(sd, fd, tile),
+                       kref.tttp_ref(sd.values, st.indices, st.valid, fd,
+                                     f64), dtype)
+    om = sd.with_values(torch.ones_like(sd.values))
+    for mode in (0, 2):
+        bk, bo = sd.row_buckets(mode, 8), om.row_buckets(mode, 8)
+        part = [None if d == mode else f for d, f in enumerate(fd)]
+        _held_one_rounding(
+            kops.mttkrp_bucketed(bk, part, tile=tile),
+            kref.mttkrp_bucketed_ref(bk.values, bk.indices, bk.local_row,
+                                     part, mode, 8, f64)[:st.shape[mode]],
+            dtype)
+        x = fd[mode]
+        _held_one_rounding(
+            kops.cg_matvec_bucketed(bo, fd, x, tile=tile),
+            kref.cg_matvec_bucketed_ref(bo.values, bo.indices, bo.local_row,
+                                        fd, x, mode, 8, f64)[:st.shape[mode]],
+            dtype)
+    label = f"{str(dtype)[6:]}/float64"
+    for k, c in kops.launch_counts_by_dtype().items():
+        assert c[label] > 0 and sum(c.values()) == c[label], (k, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,accum", [
+    (torch.float32, "float32"), (torch.bfloat16, "float32"),
+    (torch.float64, "float32"), (torch.float32, "float64"),
+    (torch.bfloat16, "float64")],
+    ids=["float32", "bfloat16", "float64", "float32-acc64", "bf16-acc64"])
+def test_bucketed_launches_repeat_bit_for_bit(dev, dtype, accum):
+    """Two launches of each bucketed kernel on the same inputs give the
+    same bits in every instantiation (each warp sums into a shared slab of
+    its own, the slabs added in warp order), on buckets whose warps flush
+    rows of several kinds (sorted and shuffled, a warp's slots across
+    three rows)."""
+    tile = ktile.KernelTile(accum_dtype=accum)
+    for shape, nnz, sort_mode in (((400, 30, 20), 600, None),
+                                  ((60, 40, 30), 6000, 0),
+                                  ((203, 77, 64), 10000, None)):
+        st, fs = _problem(dev, 17, shape, nnz, 10, sort_mode)
+        sd, fd = st.astype(dtype), [f.to(dtype) for f in fs]
+        om = sd.with_values(torch.ones_like(sd.values))
+        for mode in (0, 2):
+            bk, bo = sd.row_buckets(mode, 8), om.row_buckets(mode, 8)
+            part = [None if d == mode else f for d, f in enumerate(fd)]
+            a = kops.mttkrp_bucketed(bk, part, tile=tile)
+            assert torch.equal(a, kops.mttkrp_bucketed(bk, part, tile=tile))
+            x = fd[mode]
+            a = kops.cg_matvec_bucketed(bo, fd, x, tile=tile)
+            assert torch.equal(a, kops.cg_matvec_bucketed(bo, fd, x,
+                                                          tile=tile))

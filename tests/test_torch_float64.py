@@ -71,8 +71,15 @@ def test_pad_rows_float64_is_16_byte_rows(r, width):
 def test_launch_counters_split_float64():
     from repro_torch.kernels import ops as kops
     kops.reset_launch_counts()
-    assert all(set(c) == {"float32", "bfloat16", "float64"}
+    # by element type, and by accumulator where a tile widens it
+    assert all(set(c) == {"float32", "bfloat16", "float64",
+                          "float32/float64", "bfloat16/float64"}
                for c in kops.launch_counts_by_dtype().values())
+    assert _build.variant_name(torch.float32, torch.float64) == \
+        "float32/float64"
+    assert _build.variant_name(torch.float64, torch.float64) == "float64"
+    assert _build.entry("mttkrp_bucketed", torch.bfloat16, torch.float64) \
+        == "repro_mttkrp_bucketed_bf16_acc64"
 
 
 # ---------------------------------------------------------------------------
@@ -83,29 +90,38 @@ def test_kernel_tile_takes_a_float64_accumulator():
     t = KernelTile(accum_dtype="float64")
     assert t.short() == "br8.t256.p2.f64"
     assert KernelTile.from_json(t.to_json()).accum_dtype == "float64"
-    # the accumulator never changes a launch: one key with its float32 twin
-    assert t == KernelTile() and hash(t) == hash(KernelTile())
-    t.check_operands(torch.float64)
-    KernelTile().check_operands(torch.float64)   # float64 sums in float64
+    # the accumulator picks the instantiation: a key of its own
+    assert t != KernelTile() and hash(t) != hash(KernelTile())
+    assert t.accumulator(torch.float64) == torch.float64
+    # float64 sums in float64 whatever the tile names
+    assert KernelTile().accumulator(torch.float64) == torch.float64
+    assert not t.widens(torch.float64)
     for dt in (torch.float32, torch.bfloat16):
-        KernelTile().check_operands(dt)
-        with pytest.raises(ValueError, match="Queue B item 7"):
-            t.check_operands(dt)
+        assert KernelTile().accumulator(dt) == torch.float32
+        assert t.accumulator(dt) == torch.float64 and t.widens(dt)
     with pytest.raises(ValueError, match="float32 only"):
         KernelTile(accum_dtype="float16")
 
 
 def test_a_float64_tile_on_float32_operands_refuses_before_the_card():
-    """The wrappers check the tile against the operands before any pointer
-    reaches a launcher (here the operands are on the CPU, so the launch
-    itself would fail next)."""
-    from repro_torch.kernels import tttp as ktttp
-    vals = torch.ones(4)
-    with pytest.raises(ValueError, match="float64 accumulator"):
-        ktttp.tttp_cuda(vals, torch.zeros(4, 3, dtype=torch.int32),
-                        torch.ones(4, dtype=torch.bool),
-                        [torch.ones(2, 3)] * 3,
-                        KernelTile(accum_dtype="float64"))
+    """A float64 tile over float32 operands is accepted (no refusal is
+    left): on the CPU the wrapper reaches the plain version's float64 sums,
+    which keep the float32 output of terms that cancel, where a float32
+    sum loses it."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref as kref
+    big = 2.0 ** 24
+    vals = torch.ones(3)
+    idx = torch.zeros(3, 1, dtype=torch.int32)
+    valid = torch.ones(3, dtype=torch.bool)
+    # one row of 3 columns: big + 1 - big in a sum over R
+    f = torch.tensor([[big, 1.0, -big]])
+    wide = kops._tttp(vals, idx, valid, [f], KernelTile(accum_dtype="float64"))
+    narrow = kops._tttp(vals, idx, valid, [f], KernelTile())
+    assert wide.dtype == narrow.dtype == torch.float32
+    assert wide.tolist() == [1.0] * 3 and narrow.tolist() == [0.0] * 3
+    assert torch.equal(kref.tttp_ref(vals, idx, valid, [f], torch.float64),
+                       torch.ones(3, dtype=torch.float64))
 
 
 # ---------------------------------------------------------------------------
@@ -137,10 +153,11 @@ def test_footprint_prices_float64_rows_and_instantiations():
         dtype=dt) for dt in (torch.float32, torch.float64))
     e32 = kfootprint.estimate_footprint("cg_matvec", tile, g32)
     e64 = kfootprint.estimate_footprint("cg_matvec", tile, g64)
-    # R = 10: 12 floats a row in float32, 10 doubles in float64, both
-    # held in the accumulator type, x's rows too
-    assert (e32.smem_bytes, e64.smem_bytes) == (4 * 8 * 12 * 2,
-                                                8 * 8 * 10 * 2)
+    # R = 10: 12 floats a row in float32, 10 doubles in float64; one slab
+    # of 8 rows per warp (8 warps of 256 threads) in the accumulator type,
+    # and 8 rows of x in the compute type
+    assert (e32.smem_bytes, e64.smem_bytes) == (4 * 8 * 8 * 12 + 4 * 8 * 12,
+                                                8 * 8 * 8 * 10 + 8 * 8 * 10)
     assert e64.kernel == "bucket_rows_kernel<16, 1, 2, float64>"
     assert kfootprint.dynamic_smem_bytes(8, 10, True, torch.float64) == \
         e64.smem_bytes

@@ -187,15 +187,23 @@ def test_profile_fn_report_and_gauge():
     # TTTP + MTTKRP (no x rows in shared memory)
     ("mttkrp", 160, 4 * 8 * 128), ("cg_matvec", 160, 4 * 8 * 128)])
 def test_footprint_shared_memory_of_known_shapes(family, r, smem):
+    """``smem`` is a CTA of one warp's shared memory: its slab of 8 output
+    rows of RS floats, and the matvec's 8 rows of x. Each further warp adds
+    a slab of its own (the deterministic in-bucket sum)."""
     st, fs = _problem(r=r)
     tile = ktile.DEFAULT_TILE
+    slab = 0 if family == "tttp" else 4 * 8 * footprint.row_width(r)
     est = footprint.estimate_footprint(
         family, tile, footprint.workload_geometry(family, st, fs, tile))
-    assert est.smem_bytes == est.total == smem
+    assert est.smem_bytes == est.total == smem + 7 * slab
     assert est.fits and est.threads == 256
     assert est.budget == footprint.SMEM_PER_BLOCK_OPTIN
     assert 1 <= est.blocks_per_sm <= 8
-    assert f"{smem} B shared" in est.format()
+    assert f"{smem + 7 * slab} B shared" in est.format()
+    one = KernelTile(threads=32)
+    assert footprint.estimate_footprint(
+        family, one, footprint.workload_geometry(family, st, fs, one)
+    ).smem_bytes == smem
 
 
 def test_footprint_registers_from_the_build_log(monkeypatch):
@@ -246,7 +254,9 @@ def test_forced_prune_and_the_all_pruned_error(monkeypatch):
         "mttkrp", lattice,
         lambda t: footprint.workload_geometry("mttkrp", st, fs, t))
     assert kept == [] and [t for t, _ in pruned] == list(lattice)
-    assert all(not e.fits and e.total == 384 for _, e in pruned)
+    # one slab of 8 rows of 12 floats (384 B) per warp
+    assert all(not e.fits and e.total == 384 * t.threads // 32
+               for t, e in pruned)
     assert "OVER" in pruned[0][1].format()
     kept, _ = footprint.prune_lattice(
         "tttp", tuner.LATTICES["tttp"],
@@ -259,9 +269,10 @@ def test_forced_prune_and_the_all_pruned_error(monkeypatch):
     counters = obs.get_registry().summary()["counters"]
     assert counters["tuner/footprint_pruned"] == len(lattice)
     assert "tuner/measurements" not in counters
-    # a budget between the MTTKRP's rows and the matvec's prunes only the
-    # matvec: the summary counts it
-    monkeypatch.setenv("REPRO_SMEM_KB", "0.5")
+    # a budget between the MTTKRP's least tile (two warps' slabs, 768 B)
+    # and the matvec's (1152 B with x's rows) prunes only the matvec: the
+    # summary counts it
+    monkeypatch.setenv("REPRO_SMEM_KB", "1.0")
     omega = st.with_values(torch.ones_like(st.values))
     with pytest.raises(ValueError, match="'cg_matvec'"):
         tuner.ensure_tuned(st, fs, omega=omega, iters=1, cache_path="")
@@ -270,9 +281,15 @@ def test_forced_prune_and_the_all_pruned_error(monkeypatch):
 def test_dynamic_smem_is_the_launch_check(monkeypatch):
     """One statement of the limit: the MTTKRP's launch check reads the
     footprint module's bytes and opt-in limit."""
-    assert footprint.dynamic_smem_bytes(8, 10, False) == 384
-    assert footprint.dynamic_smem_bytes(8, 10, True) == 768
-    rows = footprint.SMEM_PER_BLOCK_OPTIN // (4 * 128 * 2)
+    # one warp: its slab, and the matvec's rows of x; 256 threads: 8 slabs
+    assert footprint.dynamic_smem_bytes(8, 10, False, threads=32) == 384
+    assert footprint.dynamic_smem_bytes(8, 10, True, threads=32) == 768
+    assert footprint.dynamic_smem_bytes(8, 10, False) == 8 * 384
+    assert footprint.dynamic_smem_bytes(8, 10, True) == 9 * 384
+    # a float64 accumulator over float32 operands: 8-byte slabs, x in float
+    assert footprint.dynamic_smem_bytes(8, 10, True, torch.float32, 256,
+                                        torch.float64) == 8 * 768 + 384
+    rows = footprint.SMEM_PER_BLOCK_OPTIN // (4 * 128 * 9)
     assert footprint.dynamic_smem_bytes(rows, 128, True) \
         <= footprint.SMEM_PER_BLOCK_OPTIN \
         < footprint.dynamic_smem_bytes(rows + 1, 128, True)

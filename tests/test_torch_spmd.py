@@ -254,9 +254,10 @@ class TestFootprint:
         e32 = kfootprint.estimate_footprint("cg_matvec", tile, g32)
         e16 = kfootprint.estimate_footprint("cg_matvec", tile, g16)
         # R = 10: 12 floats a row in float32, 16 values (32 bytes) in bf16;
-        # the shared rows are floats either way
-        assert (e32.smem_bytes, e16.smem_bytes) == (4 * 8 * 12 * 2,
-                                                    4 * 8 * 16 * 2)
+        # the shared rows are floats either way: a slab of 8 rows per warp
+        # (8 warps) and 8 rows of x
+        assert (e32.smem_bytes, e16.smem_bytes) == (4 * 8 * 12 * 9,
+                                                    4 * 8 * 16 * 9)
         assert e16.kernel == "bucket_rows_kernel<16, 1, 2, bfloat16>"
 
 
