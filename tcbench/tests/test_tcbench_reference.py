@@ -1,0 +1,44 @@
+"""The plain references against the port's CPU path at a small size, and
+the control that every cell's limits have to fail."""
+import json
+
+import pytest
+
+from tcbench import control, spec
+from tcbench.tests.small import CELLS, bench, card, execute, small  # noqa
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_reference_agrees_with_the_ports_cpu_path(cell):
+    r = execute(cell)
+    assert r["attempted"] >= 1 and r["failed"] == 0
+    assert r["correct"], r["checks"]
+    assert list(r)[-1] == "checks"
+    for c in r["checks"].values():
+        assert c["value"] <= c["limit"] / 3
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_a_limit(cell):
+    b = bench()
+    limits = spec.resolve(b, cell).traffic["limits"]
+    got = control.readings(b, cell, 77, 0.3, True, True, "cpu", small(cell))
+    assert any(v > limits[k] for k, v in got["control"].items()), got
+    for fault in ("fault_half", "fault_row"):
+        if fault in got:
+            assert any(v > limits[k] for k, v in got[fault].items()), got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_at_the_cells_own_size(card, cell):
+    """On the card, three seeds: the control fails one of the cell's
+    limits on each, and the program passes all."""
+    b = bench()
+    limits = spec.resolve(b, cell).traffic["limits"]
+    for seed in (101, 202, 303):
+        got = control.readings(b, cell, seed, 2.0, True, False)
+        assert any(v > limits[k] for k, v in got["control"].items()), \
+            json.dumps(got)
+        assert all(v <= limits[k] for k, v in got["program"].items()), \
+            json.dumps(got)
