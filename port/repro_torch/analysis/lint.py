@@ -23,8 +23,8 @@ torch meaning:
   tensor expression: each copies to the host and waits for the device.
 * ``JS003`` unfenced-timing   — ``time.perf_counter``/``time.time``/... in a
   function with no ``torch.cuda.synchronize``, event ``synchronize``/
-  ``elapsed_time`` or ``.fence(`` (an ``obs`` span's fence): launches
-  return before the card finishes, so the clock reads the enqueue.
+  ``elapsed_time`` or call of a ``fence`` helper: launches return before
+  the card finishes, so the clock reads the enqueue.
   ``obs/trace.py`` and ``planner/tuner.py`` time by charter.
 * ``JS004`` host-io-in-loop   — ``print``/``logging`` calls inside loop
   bodies of the sweep layers; emit ``obs`` counters and spans instead.
@@ -133,7 +133,7 @@ _LOG_METHODS = {"debug", "info", "warning", "warn", "error", "critical",
                 "exception", "log"}
 _LOG_ROOTS = {"log", "logger", "logging"}
 _TIME_FNS = {"perf_counter", "time", "monotonic", "process_time"}
-# torch.cuda.synchronize, Event.synchronize / elapsed_time, span.fence
+# torch.cuda.synchronize, Event.synchronize / elapsed_time, a fence helper
 _FENCE_NAMES = {"synchronize", "elapsed_time", "fence"}
 # tensor methods that reduce to a tensor a Python test would read
 _TENSOR_METHODS = {"sum", "max", "min", "any", "all", "mean", "amax", "amin",
@@ -275,7 +275,8 @@ class _Visitor(ast.NodeVisitor):
                     f"time.{name}() with no torch.cuda.synchronize, event "
                     f"elapsed_time or fence in this function — launches "
                     f"return before the card finishes, so the clock reads "
-                    f"the enqueue; use repro_torch.obs.span + sp.fence"))
+                    f"the enqueue; time the device with CUDA events "
+                    f"(repro_torch.obs.span(..., device=True))"))
 
     visit_FunctionDef = _visit_fn
     visit_AsyncFunctionDef = _visit_fn

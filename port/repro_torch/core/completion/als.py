@@ -22,7 +22,11 @@ CG runs a fixed ``max_iters`` iterations with no host synchronisation.
 The reference stops as soon as every row has converged; here converged rows
 are frozen by the same masks (``alpha = beta = 0`` leaves x and r exactly
 unchanged) and the loop goes on, so the factors are the same. The count of
-iterations in which some row was still active stays on the device.
+iterations in which some row was still active stays on the device; while
+tracing is live, outside graph capture, each solve adds its budget and that
+count to the ``obs`` counters ``cg/iterations`` and
+``cg/active_iterations``. A mode's update runs in the device-timed spans
+``als/rhs`` (the right-hand side's MTTKRP) and ``als/cg``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.distributed import (LOCAL, AxisCtx, mttkrp_ctx,
                                           planner_config, rowdot_ctx)
 from repro_torch.core.sparse_tensor import SparseTensor
@@ -109,12 +114,14 @@ def _planned_mttkrp(path: str, block_rows: int):
 
 def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
                 tol: float = 1e-4, max_iters: int = 32,
-                ctx: AxisCtx = LOCAL):
+                ctx: AxisCtx = LOCAL, out=None):
     """Preconditioned batched-rows CG on SPD systems; rows converge
     independently and converged rows (residual² ≤ tol²·‖b_row‖²) are frozen
     by masking. Runs ``max_iters`` iterations (see the module docstring).
     Returns ``(x, iters)`` with ``iters`` a device tensor: the iterations in
-    which some row was active, the reference's trip count."""
+    which some row was active, the reference's trip count. ``out`` (x of
+    x0's shape, a 0-d int32 count) receives both, the last step writing x
+    into it: the same launches, into the caller's buffers."""
     if precond is None:
         precond = lambda v: v  # noqa: E731
     bnorm2 = rowdot_ctx(b, b, ctx)
@@ -125,14 +132,22 @@ def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
     p = z
     rz = rowdot_ctx(r, z, ctx)
     rs = rowdot_ctx(r, r, ctx)
-    iters = torch.zeros((), dtype=torch.int32, device=b.device)
-    for _ in range(max_iters):
+    if out is None:
+        iters = torch.zeros((), dtype=torch.int32, device=b.device)
+    else:
+        iters = out[1].zero_()
+        if max_iters == 0:
+            x = out[0].copy_(x0)
+    for k in range(max_iters):
         active = rs > thresh
         iters += active.any()
         ap = matvec(p)
         pap = rowdot_ctx(p, ap, ctx)
         alpha = torch.where(active, rz / torch.where(pap > 0, pap, 1.0), 0.0)
-        x = x + alpha[:, None] * p
+        if out is not None and k == max_iters - 1:
+            x = torch.add(x, alpha[:, None] * p, out=out[0])
+        else:
+            x = x + alpha[:, None] * p
         r = r - alpha[:, None] * ap
         z = precond(r)
         rz_new = rowdot_ctx(r, z, ctx)
@@ -141,14 +156,16 @@ def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
         p = z + beta[:, None] * p
         rz = rz_new
         rs = rowdot_ctx(r, r, ctx)
+    obs.counter_add("cg/iterations", max_iters)
+    obs.counter_add("cg/active_iterations", iters)
     return x, iters
 
 
 def batched_cg(matvec, b: torch.Tensor, x0: torch.Tensor, tol: float = 1e-4,
-               max_iters: int = 32, ctx: AxisCtx = LOCAL):
+               max_iters: int = 32, ctx: AxisCtx = LOCAL, out=None):
     """Unpreconditioned :func:`batched_pcg`."""
     return batched_pcg(matvec, b, x0, precond=None, tol=tol,
-                       max_iters=max_iters, ctx=ctx)
+                       max_iters=max_iters, ctx=ctx, out=out)
 
 
 def als_update_mode(st: SparseTensor, omega: SparseTensor,
@@ -163,13 +180,15 @@ def als_update_mode(st: SparseTensor, omega: SparseTensor,
     ``cg_iters`` batched CG steps on the eq.-3 matvec."""
     fs = list(factors)
     fs[mode] = None
-    b = mttkrp_ctx(st, fs, mode, ctx, block_rows, path=mttkrp_path)
+    with obs.span("als/rhs", device=True, mode=mode):
+        b = mttkrp_ctx(st, fs, mode, ctx, block_rows, path=mttkrp_path)
     mv = functools.partial(gram_matvec, omega, factors, mode, lam=lam,
                            ctx=ctx, h_slices=h_slices,
                            matvec_path=matvec_path, block_rows=block_rows,
                            mttkrp_path=mttkrp_path)
-    x, _ = batched_cg(mv, b, factors[mode], tol=cg_tol, max_iters=cg_iters,
-                      ctx=ctx)
+    with obs.span("als/cg", device=True, mode=mode):
+        x, _ = batched_cg(mv, b, factors[mode], tol=cg_tol,
+                          max_iters=cg_iters, ctx=ctx)
     return x
 
 

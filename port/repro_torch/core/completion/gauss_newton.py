@@ -29,6 +29,13 @@ view, which ``row_buckets`` gathers once per mode and tensor. As in the referenc
 is no host synchronisation: the damping and the step α stay 0-d device
 tensors, the line search takes ``argmin`` on the device, accept/reject is
 ``torch.where`` and every solver runs a fixed trip count.
+
+While tracing is live an iteration's phases run in device-timed ``obs``
+spans: ``ggn/curvature`` (ω and the model values), ``ggn/gradient``,
+``ggn/pcg`` (the joint flexible PCG with its block-Jacobi
+preconditioner), ``ggn/line_search``, ``ggn/mode_cg`` (a mode's damped
+pass: its diagonal preconditioner and batched CG; attr ``mode``) and
+``ggn/accept``.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.completion.als import batched_pcg, gram_matvec
 from repro_torch.core.completion.gcp import gcp_loss
 from repro_torch.core.distributed import LOCAL, AxisCtx, mttkrp_ctx, rowdot_ctx
@@ -134,25 +142,27 @@ def curvature_tensor(st: SparseTensor, factors: Sequence[torch.Tensor],
     The clip keeps the GGN system PSD where the clamped curvature vanishes
     (poisson below the floor, huber outside δ). The ω tensor shares ``st``'s
     bucket patterns."""
-    model = ctx.psum_model(multilinear_values(st, list(factors)))
-    w = torch.where(st.mask, loss.hess(st.values, model), 0.0)
-    return st.with_values(torch.clamp(w, min=0.0)), model
+    with obs.span("ggn/curvature", device=True):
+        model = ctx.psum_model(multilinear_values(st, list(factors)))
+        w = torch.where(st.mask, loss.hess(st.values, model), 0.0)
+        return st.with_values(torch.clamp(w, min=0.0)), model
 
 
 def _gradients(st: SparseTensor, factors: List[torch.Tensor],
                model: torch.Tensor, loss: Loss, lam: float, ctx: AxisCtx,
                mttkrp_path: Optional[str],
                block_rows: int) -> List[torch.Tensor]:
-    g_st = st.with_values(torch.where(st.mask, loss.grad(st.values, model),
-                                      0.0))
-    grads = []
-    for d in range(st.ndim):
-        fs = list(factors)
-        fs[d] = None
-        grads.append(mttkrp_ctx(g_st, fs, d, ctx, block_rows,
-                                path=mttkrp_path)
-                     + 2.0 * lam * factors[d])
-    return grads
+    with obs.span("ggn/gradient", device=True):
+        g_st = st.with_values(torch.where(st.mask,
+                                          loss.grad(st.values, model), 0.0))
+        grads = []
+        for d in range(st.ndim):
+            fs = list(factors)
+            fs[d] = None
+            grads.append(mttkrp_ctx(g_st, fs, d, ctx, block_rows,
+                                    path=mttkrp_path)
+                         + 2.0 * lam * factors[d])
+        return grads
 
 
 def joint_ggn_matvec(st: SparseTensor, w_st: SparseTensor,
@@ -190,12 +200,13 @@ def ggn_update_mode(st: SparseTensor, factors: List[torch.Tensor], mode: int,
     """One damped per-mode GGN update: solve (H_dd + (2λ+μ)I) Δ = −∇_d by
     diagonal-preconditioned batched CG, return A_d + Δ."""
     w_st, model = curvature_tensor(st, factors, loss, ctx)
-    g_st = st.with_values(torch.where(st.mask, loss.grad(st.values, model),
-                                      0.0))
-    fs_g = list(factors)
-    fs_g[mode] = None
-    g = mttkrp_ctx(g_st, fs_g, mode, ctx, block_rows, path=mttkrp_path) \
-        + 2.0 * lam * factors[mode]
+    with obs.span("ggn/gradient", device=True, mode=mode):
+        g_st = st.with_values(torch.where(st.mask,
+                                          loss.grad(st.values, model), 0.0))
+        fs_g = list(factors)
+        fs_g[mode] = None
+        g = mttkrp_ctx(g_st, fs_g, mode, ctx, block_rows,
+                       path=mttkrp_path) + 2.0 * lam * factors[mode]
     shift = 2.0 * lam + damping
     mv = functools.partial(gram_matvec, w_st, list(factors), mode,
                            lam=shift, ctx=ctx, h_slices=h_slices,
@@ -203,14 +214,15 @@ def ggn_update_mode(st: SparseTensor, factors: List[torch.Tensor], mode: int,
                            mttkrp_path=mttkrp_path)
     # diagonal of each row's R×R block, one MTTKRP on squared factors:
     # diag_i[r] = Σ_{n∈Ω_i} ω_n Π_{e≠d} A_e[i_e, r]²
-    sq = [None if d == mode else torch.square(f)
-          for d, f in enumerate(factors)]
-    diag = mttkrp_ctx(w_st, sq, mode, ctx, block_rows,
-                      path=mttkrp_path) + shift
-    delta, _ = batched_pcg(mv, -g, torch.zeros_like(g),
-                           precond=lambda v: v / diag,
-                           tol=cg_tol, max_iters=cg_iters, ctx=ctx)
-    return factors[mode] + delta
+    with obs.span("ggn/mode_cg", device=True, mode=mode):
+        sq = [None if d == mode else torch.square(f)
+              for d, f in enumerate(factors)]
+        diag = mttkrp_ctx(w_st, sq, mode, ctx, block_rows,
+                          path=mttkrp_path) + shift
+        delta, _ = batched_pcg(mv, -g, torch.zeros_like(g),
+                               precond=lambda v: v / diag,
+                               tol=cg_tol, max_iters=cg_iters, ctx=ctx)
+        return factors[mode] + delta
 
 
 def joint_ggn_step(st: SparseTensor, factors: List[torch.Tensor], loss: Loss,
@@ -242,19 +254,24 @@ def joint_ggn_step(st: SparseTensor, factors: List[torch.Tensor], loss: Loss,
             out.append(_block_cg_fixed(mvd, rs[d], precond_iters, ctx))
         return tuple(out)
 
-    delta = _flexible_pcg(mv, tuple(-gg for gg in g), precond, joint_iters,
-                          ctx)
-    f0 = gcp_loss(st, list(factors), loss, lam, ctx)
-    objs = torch.stack([gcp_loss(st, [f + a * d_ for f, d_ in
-                                      zip(factors, delta)], loss, lam, ctx)
-                        for a in LINE_SEARCH_ALPHAS])
-    best = torch.argmin(objs)
-    # the grid as a device tensor, built by fills (no host-to-device copy)
-    alphas = torch.stack([torch.full((), a, dtype=f0.dtype, device=f0.device)
-                          for a in LINE_SEARCH_ALPHAS])
-    alpha = torch.where(objs[best] < f0, alphas[best], 0.0)
-    new = [f + alpha * d_ for f, d_ in zip(factors, delta)]
-    return new, alpha
+    with obs.span("ggn/pcg", device=True):
+        delta = _flexible_pcg(mv, tuple(-gg for gg in g), precond,
+                              joint_iters, ctx)
+    with obs.span("ggn/line_search", device=True):
+        f0 = gcp_loss(st, list(factors), loss, lam, ctx)
+        objs = torch.stack([gcp_loss(st, [f + a * d_ for f, d_ in
+                                          zip(factors, delta)], loss, lam,
+                                     ctx)
+                            for a in LINE_SEARCH_ALPHAS])
+        best = torch.argmin(objs)
+        # the grid as a device tensor, built by fills (no host-to-device
+        # copy)
+        alphas = torch.stack([torch.full((), a, dtype=f0.dtype,
+                                         device=f0.device)
+                              for a in LINE_SEARCH_ALPHAS])
+        alpha = torch.where(objs[best] < f0, alphas[best], 0.0)
+        new = [f + alpha * d_ for f, d_ in zip(factors, delta)]
+        return new, alpha
 
 
 def ggn_sweep(st: SparseTensor, state: GGNState, loss: Loss, lam: float,
@@ -285,16 +302,18 @@ def ggn_sweep(st: SparseTensor, state: GGNState, loss: Loss, lam: float,
                                 block_rows=block_rows)
     if not adapt_damping:
         return GGNState(tuple(fs), mu)
-    f_old = gcp_loss(st, list(state.factors), loss, lam, ctx)
-    f_new = gcp_loss(st, fs, loss, lam, ctx)
-    ok = f_new <= f_old
-    factors = tuple(torch.where(ok, new, old)
-                    for new, old in zip(fs, state.factors))
-    # μ schedule: shrink on a full step, grow when the line search had to
-    # truncate hard (the GN direction overshot), grow harder on rejection
-    mu_acc = torch.where(alpha >= 1.0, mu * DAMPING_DECREASE,
-                         torch.where(alpha >= 0.4, mu,
-                                     mu * DAMPING_TRUNCATED))
-    mu = torch.clamp(torch.where(ok, mu_acc, mu * DAMPING_INCREASE),
-                     DAMPING_MIN, DAMPING_MAX)
-    return GGNState(factors, mu)
+    with obs.span("ggn/accept", device=True):
+        f_old = gcp_loss(st, list(state.factors), loss, lam, ctx)
+        f_new = gcp_loss(st, fs, loss, lam, ctx)
+        ok = f_new <= f_old
+        factors = tuple(torch.where(ok, new, old)
+                        for new, old in zip(fs, state.factors))
+        # μ schedule: shrink on a full step, grow when the line search had
+        # to truncate hard (the GN direction overshot), grow harder on
+        # rejection
+        mu_acc = torch.where(alpha >= 1.0, mu * DAMPING_DECREASE,
+                             torch.where(alpha >= 0.4, mu,
+                                         mu * DAMPING_TRUNCATED))
+        mu = torch.clamp(torch.where(ok, mu_acc, mu * DAMPING_INCREASE),
+                         DAMPING_MIN, DAMPING_MAX)
+        return GGNState(factors, mu)

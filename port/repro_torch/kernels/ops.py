@@ -31,7 +31,8 @@ Launch shapes: each wrapper takes ``tile=``, a ``kernels.tile.KernelTile``
 otherwise the family's entry of the process-wide table
 (``tile.current_tile``, where ``planner.tuner`` installs measured winners).
 The CPU's plain versions ignore the launch knobs. Each call runs in an
-``obs`` span ``kernel/<family>`` that carries ``tile=<short>``.
+``obs`` span ``kernel/<family>`` that carries ``tile=<short>``; the span
+times the host only (the device trace names the kernel itself).
 
 Each kernel module counts its launches in a plain integer ``launches`` and
 keeps the (threads, per_thread) of its last launch in ``last_launch``
@@ -170,14 +171,13 @@ def _tttp(values: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor,
                for f in factors]
     t = _resolve_tile("tttp", tile)
     dt = _out_dtype(values, factors)
-    with obs.span("kernel/tttp", m=values.shape[0], tile=t.short()) as sp:
+    with obs.span("kernel/tttp", m=values.shape[0], tile=t.short()):
         if not _on_card(values):
-            return sp.fence(kref.tttp_ref(values, indices, valid, factors,
-                                          _plain_acc(t, dt)).to(dt))
+            return kref.tttp_ref(values, indices, valid, factors,
+                                 _plain_acc(t, dt)).to(dt)
         _refuse_grad("TTTP", values, *factors)
-        return sp.fence(ktttp.tttp_cuda(
-            _cast(values, dt), indices, valid,
-            [_cast(f, dt) for f in factors], t))
+        return ktttp.tttp_cuda(_cast(values, dt), indices, valid,
+                               [_cast(f, dt) for f in factors], t)
 
 
 def tttp_values(st: SparseTensor, factors: Sequence[Optional[torch.Tensor]],
@@ -215,19 +215,19 @@ def mttkrp_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
     t = _resolve_tile("mttkrp", tile)
     dt = _out_dtype(buckets.values, factors)
     with obs.span("kernel/mttkrp_bucketed", mode=buckets.mode,
-                  rows=num_rows, tile=t.short()) as sp:
+                  rows=num_rows, tile=t.short()):
         if not _on_card(buckets.values):
             out = kref.mttkrp_bucketed_ref(buckets.values, buckets.indices,
                                            buckets.local_row, factors,
                                            buckets.mode, buckets.block_rows,
                                            _plain_acc(t, dt))
-            return sp.fence(out[:num_rows].to(dt))
+            return out[:num_rows].to(dt)
         _refuse_grad("MTTKRP", buckets.values, *factors)
         if buckets.values.dtype != dt:
             buckets = dataclasses.replace(buckets,
                                           values=buckets.values.to(dt))
-        return sp.fence(kmttkrp.mttkrp_cuda(
-            buckets, [_cast(f, dt) for f in factors], t)[:num_rows])
+        return kmttkrp.mttkrp_cuda(
+            buckets, [_cast(f, dt) for f in factors], t)[:num_rows]
 
 
 def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
@@ -263,14 +263,14 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                                num_rows, halves("mttkrp"))
     dt = _out_dtype(x, factors)
     with obs.span("kernel/cg_matvec_bucketed", mode=mode, rows=num_rows,
-                  tile=t.short()) as sp:
+                  tile=t.short()):
         if not _on_card(buckets.values):
             out = kref.cg_matvec_bucketed_ref(buckets.values,
                                               buckets.indices,
                                               buckets.local_row, factors, x,
                                               mode, buckets.block_rows,
                                               _plain_acc(t, dt))
-            return sp.fence(out[:num_rows].to(dt))
+            return out[:num_rows].to(dt)
         _refuse_grad("fused CG-matvec", buckets.values, x, *factors)
         kdt = _promoted(buckets.values, x, *factors)
         if buckets.values.dtype != kdt:
@@ -278,7 +278,7 @@ def cg_matvec_bucketed(buckets, factors: Sequence[Optional[torch.Tensor]],
                                           values=buckets.values.to(kdt))
         out = kcg.cg_matvec_cuda(buckets, [_cast(f, kdt) for f in factors],
                                  _cast(x, kdt), t)
-        return sp.fence(out[:num_rows].to(dt))
+        return out[:num_rows].to(dt)
 
 
 BUCKET_MATVEC_PATHS = ("fused", "tttp_mttkrp", "sliced")

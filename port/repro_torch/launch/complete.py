@@ -85,7 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch import checkpoint as ckpt
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core import losses as LOSS
 from repro_torch.core.completion import GGNState, make_step
 from repro_torch.core.completion.als import MATVEC_PATHS
@@ -302,13 +302,16 @@ def rmse(st: SparseTensor, factors: Sequence[torch.Tensor],
     """RMSE over the valid entries. Under a ctx: the model values psum'd
     over the model axis, then the local squared error and count psum'd
     over the data axes (one all-reduce), then the root (the reference
-    gathers the global error eagerly instead)."""
-    model = ctx.psum_model(multilinear_values(st, factors))
-    d = (st.values - model) * st.mask
-    sq, n = (d * d).sum(), st.mask.sum()
-    if ctx.data is not None:
-        sq, n = ctx.psum_data(torch.stack([sq, n.to(sq.dtype)]))
-    return float(torch.sqrt(sq / torch.clamp(n, min=1)))
+    gathers the global error eagerly instead). The device work runs in
+    the device-timed ``obs`` span ``complete/rmse``."""
+    with obs.span("complete/rmse", device=True):
+        model = ctx.psum_model(multilinear_values(st, factors))
+        d = (st.values - model) * st.mask
+        sq, n = (d * d).sum(), st.mask.sum()
+        if ctx.data is not None:
+            sq, n = ctx.psum_data(torch.stack([sq, n.to(sq.dtype)]))
+        e = torch.sqrt(sq / torch.clamp(n, min=1))
+    return float(e)
 
 
 def load_problem(args, layout: Optional[DistLayout] = None

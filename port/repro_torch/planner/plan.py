@@ -146,6 +146,9 @@ def plan_contraction(expr: str, operands: Sequence,
     unreduced, psum nothing twice and gather no global rows from a
     row-sharded factor, else ``SpmdContractError``; a LOCAL call has
     nothing to certify, and a cached plan is returned as it is.
+
+    While tracing is live each call counts ``planner/plan_cache/hits`` or
+    ``planner/plan_cache/misses`` in the ``obs`` registry.
     """
     ctx = ctx if ctx is not None else LOCAL
     config = config if config is not None else default_config()
@@ -156,7 +159,9 @@ def plan_contraction(expr: str, operands: Sequence,
     capturing = not obs.trace_clean()
     if cached is not None and (path is not None or cached.autotuned
                                or not autotune or capturing):
+        obs.counter_add("planner/plan_cache/hits")
         return cached
+    obs.counter_add("planner/plan_cache/misses")
     if capturing:
         raise RuntimeError(
             f"no cached plan for {pir.normalize(expr)!r} while a CUDA graph "

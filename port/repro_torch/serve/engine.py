@@ -22,8 +22,18 @@ the graph, and the graph's inputs are the bucket view's arrays. A replay
 adds the kernel launches its graph holds to ``kernels.ops``'s counts, so
 the counts stay true. On the CPU every call runs eagerly.
 
-Every endpoint is wrapped in an ``obs.span`` (fenced: the span covers the
-device work) and feeds per-endpoint counters.
+Every endpoint is wrapped in an ``obs.span`` and feeds per-endpoint
+counters; no span waits for the device (the answers' readback, span
+``serve/readback``, does). Inside an endpoint the host's phases have spans
+of their own, which the benchmark lines up with the device trace's idle
+gaps: fold-in's ``serve/fold_in/pack`` (packing the histories and their
+upload) and ``serve/fold_in/bucket_pattern`` (the bucket view, with its
+two waits for the device), top-k's ``serve/top_k/pad``, and per graph
+``serve/graph/capture`` (a key's first call) and ``serve/graph/replay``
+(the static copies and the replay). A fold-in replay adds its CG budget
+and the iterations in which some row was still active (which the graph
+writes into the rows' buffer, so that one copy reads both) to the counters
+``cg/iterations`` and ``cg/active_iterations``, as an eager solve does.
 """
 from __future__ import annotations
 
@@ -80,12 +90,14 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
 
 
 class _Graph:
-    """One captured CUDA graph: the static input buffers it reads, its
-    outputs (valid after each replay), the kernel launches one replay makes,
-    and the result of the eager first call (until the caller takes it)."""
+    """One captured CUDA graph: its key's name, the static input buffers it
+    reads, its outputs (valid after each replay), the kernel launches one
+    replay makes, and the result of the eager first call (until the caller
+    takes it)."""
 
-    def __init__(self, fn, static, device: torch.device):
+    def __init__(self, name: str, fn, static, device: torch.device):
         t0 = time.perf_counter()
+        self.name = name
         self.static = static
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
@@ -156,14 +168,17 @@ class ServeEngine:
             return fn(*[x.to(self.device) for x in inputs])
         g = self.graphs.get(key)
         if g is None:
-            static = [torch.empty(x.shape, dtype=x.dtype, device=self.device)
-                      for x in inputs]
-            for buf, x in zip(static, inputs):
-                buf.copy_(x)
-            g = self.graphs[key] = _Graph(fn, static, self.device)
+            name = "/".join(map(str, key))
+            with obs.span("serve/graph/capture", key=name):
+                static = [torch.empty(x.shape, dtype=x.dtype,
+                                      device=self.device) for x in inputs]
+                for buf, x in zip(static, inputs):
+                    buf.copy_(x)
+                g = self.graphs[key] = _Graph(name, fn, static, self.device)
             first, g.first = g.first, None
             return first
-        return g.replay(inputs)
+        with obs.span("serve/graph/replay", key=g.name):
+            return g.replay(inputs)
 
     def graph_stats(self) -> Dict[str, object]:
         """Graphs captured, replays made and the first calls' seconds."""
@@ -172,8 +187,7 @@ class ServeEngine:
                 "first_call_s": sum(g.first_call_s
                                     for g in self.graphs.values()),
                 "launches_per_replay": {
-                    "/".join(map(str, k)): g.launches
-                    for k, g in self.graphs.items()}}
+                    g.name: g.launches for g in self.graphs.values()}}
 
     # -- endpoints -----------------------------------------------------------
     def score(self, indices, link: Optional[bool] = True) -> np.ndarray:
@@ -202,17 +216,16 @@ class ServeEngine:
             return apply_link(planned_tttp(st, list(fs), path=path).values,
                               lk)
 
-        with obs.span("serve/score", n=n, link=lk,
-                      path=path or "tttp") as sp:
+        with obs.span("serve/score", n=n, link=lk, path=path or "tttp"):
             for lo in range(0, n, self.max_batch):
                 chunk = idx[lo:lo + self.max_batch]
                 b = _bucket(chunk.shape[0], self.min_batch, self.max_batch)
                 pad = np.zeros((b, idx.shape[1]), np.int32)
                 pad[:chunk.shape[0]] = chunk
-                vals = sp.fence(self._run(("score", b, lk), run,
-                                          torch.from_numpy(pad)))
-                out[lo:lo + chunk.shape[0]] = \
-                    vals[:chunk.shape[0]].cpu().numpy()
+                vals = self._run(("score", b, lk), run, torch.from_numpy(pad))
+                with obs.span("serve/readback"):
+                    out[lo:lo + chunk.shape[0]] = \
+                        vals[:chunk.shape[0]].cpu().numpy()
             obs.counter_add("serve/queries", n)
         return out
 
@@ -241,22 +254,23 @@ class ServeEngine:
 
         vals = np.empty((n, k), _np_dtype(fs[0]))
         idx = np.empty((n, k), np.int32)
-        with obs.span("serve/top_k", b=n, k=k,
-                      target_mode=target_mode) as sp:
+        with obs.span("serve/top_k", b=n, k=k, target_mode=target_mode):
             for lo in range(0, n, self.max_batch):
                 m = min(n - lo, self.max_batch)
                 b = _bucket(m, self.min_batch, self.max_batch)
-                bufs = []
-                for d in modes:
-                    v = fx[d][lo:lo + m]
-                    pad = (np.zeros((b,), np.int64) if v.ndim == 1 else
-                           np.zeros((b, v.shape[1]), np.float32))
-                    pad[:m] = v
-                    bufs.append(torch.from_numpy(pad))
-                tv, ti = sp.fence(self._run(("top_k", b, target_mode, k, sig),
-                                            run, *bufs))
-                vals[lo:lo + m] = tv[:m].cpu().numpy()
-                idx[lo:lo + m] = ti[:m].cpu().numpy()
+                with obs.span("serve/top_k/pad"):
+                    bufs = []
+                    for d in modes:
+                        v = fx[d][lo:lo + m]
+                        pad = (np.zeros((b,), np.int64) if v.ndim == 1 else
+                               np.zeros((b, v.shape[1]), np.float32))
+                        pad[:m] = v
+                        bufs.append(torch.from_numpy(pad))
+                tv, ti = self._run(("top_k", b, target_mode, k, sig), run,
+                                   *bufs)
+                with obs.span("serve/readback"):
+                    vals[lo:lo + m] = tv[:m].cpu().numpy()
+                    idx[lo:lo + m] = ti[:m].cpu().numpy()
             obs.counter_add("serve/topk_queries", n)
         return vals, idx
 
@@ -267,12 +281,20 @@ class ServeEngine:
         total = sum(len(np.asarray(v).reshape(-1)) for _, v in histories)
         rows = np.empty((len(histories), self.model.rank),
                         _np_dtype(self.model.factors[0]))
+        budget = _foldin.cg_budget(self.model.rank)
         with obs.span("serve/fold_in", b=len(histories), nnz=total,
-                      mode=mode) as sp:
+                      mode=mode):
             for lo in range(0, len(histories), self.max_batch):
                 chunk = histories[lo:lo + self.max_batch]
-                got = sp.fence(self._fold_in_batch(chunk, mode))
-                rows[lo:lo + len(chunk)] = got[:len(chunk)].cpu().numpy()
+                flat, batch, replay = self._fold_in_batch(chunk, mode)
+                with obs.span("serve/readback"):
+                    # one copy carries the rows and the replay's count
+                    got, iters = _foldin.unpack_rows(flat.cpu(), batch,
+                                                     self.model.rank)
+                    rows[lo:lo + len(chunk)] = got[:len(chunk)].numpy()
+                if replay and obs.live():
+                    obs.counter_add("cg/iterations", budget)
+                    obs.counter_add("cg/active_iterations", int(iters))
             obs.counter_add("serve/foldin_users", len(histories))
         return rows
 
@@ -288,35 +310,48 @@ class ServeEngine:
         empty = (np.zeros((0, len(shape) - 1), np.int32),
                  np.zeros((0,), np.float32))
         padded = list(histories) + [empty] * (b - len(histories))
-        counts = np.array([len(np.asarray(v).reshape(-1))
-                           for _, v in padded], np.int64)
-        cap = _bucket(max(int(counts.sum()), 1), self.min_batch, 1 << 30)
-        st = _foldin.pack_histories(padded, shape, mode, cap=cap,
-                                    device=self.device)
-        br = _foldin.BLOCK_ROWS
-        nb = -(-b // br)
-        occupancy = np.zeros(nb * br, np.int64)
-        occupancy[:b] = counts
-        capacity = _bucket(max(int(occupancy.reshape(nb, br).sum(1).max()),
-                               1), br, 1 << 30)
-        return bucket_pattern(st, mode, br, capacity=capacity).gather(st)
+        with obs.span("serve/fold_in/pack"):
+            counts = np.array([len(np.asarray(v).reshape(-1))
+                               for _, v in padded], np.int64)
+            cap = _bucket(max(int(counts.sum()), 1), self.min_batch, 1 << 30)
+            st = _foldin.pack_histories(padded, shape, mode, cap=cap,
+                                        device=self.device)
+        with obs.span("serve/fold_in/bucket_pattern"):
+            br = _foldin.BLOCK_ROWS
+            nb = -(-b // br)
+            occupancy = np.zeros(nb * br, np.int64)
+            occupancy[:b] = counts
+            capacity = _bucket(
+                max(int(occupancy.reshape(nb, br).sum(1).max()), 1), br,
+                1 << 30)
+            return bucket_pattern(st, mode, br,
+                                  capacity=capacity).gather(st)
 
-    def _fold_in_batch(self, histories, mode: int) -> torch.Tensor:
+    def _fold_in_batch(self, histories, mode: int
+                       ) -> Tuple[torch.Tensor, int, bool]:
         """Fold-in rows of one batch (padded, see :meth:`history_buckets`):
         the graph of its (batch, bucket capacity) runs over the bucket
-        view's arrays."""
+        view's arrays. Returns a ``serve.foldin.packed_rows`` buffer of the
+        rows and the count of CG iterations in which some row was active,
+        the padded batch, and whether a graph replayed (an eager solve
+        counted its iterations itself)."""
         bk = self.history_buckets(histories, mode)
         fs = self.model.factors
         route, lam = self.foldin_route, self.foldin_lam
         shape, br = bk.shape, bk.block_rows
+        batch, rank = shape[mode], self.model.rank
 
         def run(values, indices, local_row, valid):
             view = RowBlockBuckets(values, indices, local_row, valid, mode,
                                    br, shape)
-            rows, _ = _foldin.solve_buckets(
-                view, _foldin.omega_view(view), fs, lam=lam,
-                matvec_path=route)
-            return rows
+            dtype = torch.promote_types(values.dtype, fs[mode - 1].dtype)
+            flat, out = _foldin.packed_rows(batch, rank, dtype, values.device)
+            _foldin.solve_buckets(view, _foldin.omega_view(view), fs,
+                                  lam=lam, matvec_path=route, out=out)
+            return flat
 
-        return self._run(("fold_in", mode, shape[mode], bk.capacity), run,
-                         bk.values, bk.indices, bk.local_row, bk.valid)
+        key = ("fold_in", mode, batch, bk.capacity)
+        replay = key in self.graphs
+        flat = self._run(key, run, bk.values, bk.indices, bk.local_row,
+                         bk.valid)
+        return flat, batch, replay

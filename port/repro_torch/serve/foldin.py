@@ -90,16 +90,22 @@ def pack_histories(histories: Sequence[History], shape: Sequence[int],
                                  pad_multiple=pad_multiple, device=device)
 
 
+def cg_budget(rank: int) -> int:
+    """Fold-in's default CG iterations at rank R: max(4R, 32)."""
+    return max(4 * rank, 32)
+
+
 def solve_buckets(buckets, omega_buckets, factors: Sequence[torch.Tensor],
                   lam: float = 1e-2, cg_tol: float = 1e-6,
                   cg_iters: Optional[int] = None, matvec_path: str = "fused",
-                  x0: Optional[torch.Tensor] = None):
+                  x0: Optional[torch.Tensor] = None, out=None):
     """Batched one-row damped ALS over a packed history's bucket views
     along their mode: ``buckets`` hold the ratings, ``omega_buckets`` (the
     same pattern) the weights ω. Returns ``(rows (B, R), iters)``, B the
     history tensor's extent in that mode and ``iters`` a device tensor:
     the CG iterations in which some row was active. ``cg_iters`` defaults
-    to max(4R, 32); converged rows are frozen (``als.batched_cg``)."""
+    to max(4R, 32); converged rows are frozen (``als.batched_cg``).
+    ``out`` (rows, iters) receives both (:func:`packed_rows`)."""
     mode = buckets.mode
     fs = list(factors)
     others = [d for d in range(len(fs)) if d != mode]
@@ -107,7 +113,7 @@ def solve_buckets(buckets, omega_buckets, factors: Sequence[torch.Tensor],
         raise ValueError("fold-in needs a frozen factor on every other mode")
     r = int(fs[others[0]].shape[1])
     batch = int(buckets.shape[mode])
-    cg_iters = max(4 * r, 32) if cg_iters is None else cg_iters
+    cg_iters = cg_budget(r) if cg_iters is None else cg_iters
     b_factors = [None if d == mode else fs[d] for d in range(len(fs))]
     b = kops.mttkrp_bucketed(buckets, b_factors, num_rows=batch)   # (B, R)
     if matvec_path in als.DIRECT_MATVEC_PATHS:
@@ -122,7 +128,34 @@ def solve_buckets(buckets, omega_buckets, factors: Sequence[torch.Tensor],
                                block_rows=omega_buckets.block_rows)
     if x0 is None:
         x0 = torch.zeros((batch, r), dtype=b.dtype, device=b.device)
-    return als.batched_cg(mv, b, x0, tol=cg_tol, max_iters=cg_iters)
+    return als.batched_cg(mv, b, x0, tol=cg_tol, max_iters=cg_iters,
+                          out=out)
+
+
+def _count_offset(n: int, itemsize: int) -> int:
+    """Elements of a packed buffer before its count: ``n`` rows' elements
+    rounded up to a 4-byte boundary."""
+    return -(-n * itemsize // 4) * 4 // itemsize
+
+
+def packed_rows(batch: int, rank: int, dtype: torch.dtype,
+                device="cuda") -> tuple:
+    """One flat buffer for a batch's rows (B, R) and, after them on a
+    4-byte boundary, a 0-d int32 count, so that one copy reads both:
+    ``(flat, (rows, count))``, the pair as :func:`solve_buckets`'s
+    ``out``; :func:`unpack_rows` splits a copy of ``flat``."""
+    off = _count_offset(batch * rank, dtype.itemsize)
+    flat = torch.empty(off + max(1, 4 // dtype.itemsize), dtype=dtype,
+                       device=device)
+    return flat, unpack_rows(flat, batch, rank)
+
+
+def unpack_rows(flat: torch.Tensor, batch: int, rank: int) -> tuple:
+    """``(rows (B, R), count)`` of a :func:`packed_rows` buffer, as views
+    of ``flat``."""
+    off = _count_offset(batch * rank, flat.element_size())
+    return (flat[:batch * rank].view(batch, rank),
+            flat[off:].view(torch.int32)[0])
 
 
 def omega_view(buckets):

@@ -189,10 +189,10 @@ class TestLintRules:
         "import time\ndef f(g):\n    g()\n    torch.cuda.synchronize()\n"
         "    t = time.perf_counter()\n    g()\n    torch.cuda.synchronize()\n"
         "    return time.perf_counter() - t\n",
-        # fenced inside a nested timing closure (an obs span's fence)
+        # fenced inside a nested timing closure (a fence helper)
         "import time\ndef f(g):\n"
-        "    def run():\n        with span('x') as sp:\n"
-        "            return sp.fence(g())\n"
+        "    def run():\n        with span('x'):\n"
+        "            return fence(g())\n"
         "    run()\n    t = time.perf_counter()\n    run()\n"
         "    return time.perf_counter() - t\n",
         "def f(xs):\n    print('done', sum(xs))\n",

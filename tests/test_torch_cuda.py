@@ -515,18 +515,25 @@ def test_checkpoint_round_trip_restores_onto_card(dev, tmp_path):
 
 @pytest.mark.cuda
 def test_span_fences_card_work_and_is_a_noop_under_graph_capture(dev):
+    """A device span times its card work with CUDA events and returns
+    before that work is done (no fence: only reading the registry waits);
+    under graph capture a span is a no-op."""
     from repro_torch import obs
     a = torch.randn(4096, 4096, device=dev)
     obs.enable()
     obs.get_registry().reset()
     try:
         torch.cuda.synchronize()
-        with obs.span("matmul") as sp:
+        with obs.span("matmul", device=True) as sp:
             for _ in range(20):
                 b = a @ a
-            sp.fence(b)
-        assert torch.cuda.current_stream().query()     # fenced: work done
         assert sp.record["dur_s"] > 0
+        assert not torch.cuda.current_stream().query()   # not fenced
+        (e,) = obs.get_registry().spans("matmul")        # waits here
+        assert torch.cuda.current_stream().query()
+        # 20 products of 4096^2 at most at the card's fp32 peak, 67
+        # TFLOP/s: the device time is no shorter than that bound
+        assert e.device_s >= 20 * 2 * 4096 ** 3 / 67e12
         x = torch.ones(8, device=dev)
         g = torch.cuda.CUDAGraph()
         s = torch.cuda.Stream()
@@ -534,14 +541,18 @@ def test_span_fences_card_work_and_is_a_noop_under_graph_capture(dev):
         with torch.cuda.stream(s):
             y = x * 2                                   # warm-up
             with torch.cuda.graph(g):
-                with obs.span("captured") as cap:
+                with obs.span("captured", device=True) as cap:
                     assert not cap.live and obs.capturing()
-                    y = cap.fence(x * 2)
+                    y = x * 2
+                obs.counter_add("captured")
         torch.cuda.current_stream().wait_stream(s)
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(y, x * 2)
-        assert set(obs.get_registry().summary()["timings"]) == {"matmul"}
+        summ = obs.get_registry().summary()
+        assert set(summ["timings"]) == {"matmul"}
+        assert summ["timings"]["matmul"]["device_count"] == 1
+        assert summ["counters"] == {}
     finally:
         obs.disable()
         obs.get_registry().reset()
@@ -649,6 +660,50 @@ def test_replays_count_the_launches_of_eager_calls(dev):
         eng.fold_in(hists, 0)
     assert kops.launch_counts() == {k: n * v for k, v in eager_fold.items()}
     assert eng.graph_stats()["replays"] == 2 * (n - 1)
+
+
+@pytest.mark.cuda
+def test_fold_in_replays_count_their_cg_iterations(dev):
+    """With tracing live, a fold-in replay adds its CG budget and the
+    graph's own count of active iterations, read in the rows' copy, to the
+    counters (the eager first call counted in its solve), and tracing
+    leaves each graph's launches and rows as they were."""
+    from repro_torch import obs, serve
+    from repro_torch.serve import foldin
+    arrays, _, _, hists = _serve_case(3, (300, 200, 30), 32, 16, 20)
+    model = interop.serving_model_from_numpy(arrays, device=dev)
+    plain = serve.ServeEngine(model, device=dev)
+    for _ in range(2):
+        want = plain.fold_in(hists, 0)
+    traced = serve.ServeEngine(model, device=dev)
+    budget = foldin.cg_budget(32)
+    obs.enable()
+    obs.get_registry().reset()
+    try:
+        traced.fold_in(hists, 0)             # eager first call, captured
+        reg = obs.get_registry()
+        first = reg.summary()["counters"]
+        for _ in range(2):                   # two replays
+            got = traced.fold_in(hists, 0)
+        counters = reg.summary()["counters"]
+        log = reg.counter_log("cg/")
+        names = [e.name for e in reg.spans("serve/")]
+    finally:
+        obs.disable()
+        obs.get_registry().reset()
+    assert traced.graph_stats()["replays"] == 2
+    assert first["cg/iterations"] == budget
+    assert 0 < first["cg/active_iterations"] <= budget
+    assert counters["cg/iterations"] == 3 * budget
+    assert counters["cg/active_iterations"] == \
+        3 * first["cg/active_iterations"]
+    assert len(log) == 6
+    assert names.count("serve/graph/replay") == 2
+    assert names.count("serve/graph/capture") == 1
+    assert names.count("serve/fold_in/pack") == 3
+    assert traced.graph_stats()["launches_per_replay"] == \
+        plain.graph_stats()["launches_per_replay"]
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.cuda

@@ -421,7 +421,8 @@ def test_verify_catches_a_wrong_score(reference_dump):
 def test_entry_points_default_to_cuda():
     """Every function of the port with a ``device`` parameter defaults to
     the card, but ``SparseTensor.from_coo`` (None keeps its inputs'
-    device), and every CLI's ``--device`` does."""
+    device) and ``obs.span`` (whose ``device`` is a flag: time the span on
+    the device too), and every CLI's ``--device`` does."""
     found = []
     for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
         mod = __import__(info.name, fromlist=["_"])
@@ -439,7 +440,7 @@ def test_entry_points_default_to_cuda():
                     found.append((fn.__qualname__, p.default))
     found = sorted(set(found))
     assert [f for f in found if f[1] != "cuda"] == \
-        [("SparseTensor.from_coo", None)]
+        [("SparseTensor.from_coo", None), ("span", False)]
     names = {f[0] for f in found}
     assert {"load_factors", "pack_histories", "ServeEngine.__init__",
             "serving_model_from_numpy", "ingest_spec", "tensor",
@@ -469,3 +470,33 @@ def test_recorded_launches_moves_counts_to_the_replay():
                                         "cg_matvec": 12}
     finally:
         kops.reset_launch_counts()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64], ids=str)
+@pytest.mark.parametrize("batch,rank", [(8, 4), (3, 5)])
+def test_packed_rows_carry_the_solve_and_its_count(dtype, batch, rank):
+    """A fold-in solve into a ``packed_rows`` buffer writes the rows and
+    the count of active CG iterations that it returns without one, and
+    ``unpack_rows`` reads both back from one copy of the buffer."""
+    from repro_torch.core.completion import als
+    from repro_torch.serve import foldin
+    g = torch.Generator().manual_seed(batch * rank)
+    a = torch.randn(batch, rank, rank, generator=g, dtype=torch.float64)
+    spd = (a @ a.transpose(1, 2) + rank * torch.eye(rank)).to(dtype)
+    b = torch.randn(batch, rank, generator=g).to(dtype)
+
+    def mv(v):
+        return (spd @ v[:, :, None])[:, :, 0]
+
+    x0 = torch.zeros_like(b)
+    want, iters = als.batched_cg(mv, b, x0, tol=1e-6, max_iters=3 * rank)
+    flat, out = foldin.packed_rows(batch, rank, dtype, "cpu")
+    got, count = als.batched_cg(mv, b, x0, tol=1e-6, max_iters=3 * rank,
+                                out=out)
+    assert got.data_ptr() == flat.data_ptr()
+    rows, n = foldin.unpack_rows(flat.clone(), batch, rank)
+    assert torch.equal(rows, want) and torch.equal(got, want)
+    assert int(n) == int(count) == int(iters) > 0
+    _, zero = als.batched_cg(mv, b, b, max_iters=0, out=out)
+    assert int(zero) == 0 and torch.equal(out[0], b)
