@@ -243,7 +243,9 @@ tensor before it is freed, 9e after phase 8, on 7e's factors, 11 after 9e,
       one): RMSE per sweep within 1e-4 relative of phase 3's LOCAL run,
       the factors at rtol 1e-3 (atol 1e-3 of the largest entry); every
       rank must launch TTTP, the MTTKRP and the fused matvec and
-      all-reduce 3 x (1 + 1 + 20) = 66 times per sweep; bytes,
+      all-reduce 3 + its fused matvecs times per sweep (the right-hand
+      sides, CG's first residuals and the iterations CG ran: at most
+      3 x (1 + 1 + 20) = 66); bytes,
       host-staged bytes and sweep ms printed per rank;
    b. every algorithm at 7e's dims (2000 x 1500 x 1000, 2 M nonzeros, R =
       10, two sweeps) on a 2 x 2 grid of gloo ranks (sgd on 1 x 4 at R =
@@ -972,7 +974,8 @@ def phase_main_path(torch):
     per_sweep = {k: n / SWEEPS for k, n in launches.items()}
     log(f"  launches per sweep: mttkrp {per_sweep['mttkrp']:.0f} "
         f"(1 per mode), cg_matvec {per_sweep['cg_matvec']:.0f} "
-        f"(1 + {CG_ITERS} per mode), tttp {launches['tttp']} in all "
+        f"(1 + the iterations CG ran, at most {CG_ITERS}, per mode), tttp "
+        f"{launches['tttp']} in all "
         f"(one RMSE before the sweeps and one after each)")
 
     # the same two fused sweeps again from the same start: the same bits
@@ -1003,9 +1006,9 @@ def phase_main_path(torch):
     other_launches = kops.launch_counts()
     log(f"  tttp_mttkrp run: {time.perf_counter() - t0:.1f} s, sweep "
         f"{other.history[0][1] * 1e3:.1f} ms, launches {other_launches} "
-        f"(tttp 1 + {CG_ITERS} per mode in the sweep over the bucket view, "
-        f"and one RMSE before and after it; mttkrp 1 + (1 + {CG_ITERS}) per "
-        f"mode)")
+        f"(tttp 1 + the iterations CG ran per mode in the sweep over the "
+        f"bucket view, and one RMSE before and after it; mttkrp 1 + (1 + "
+        f"the iterations) per mode)")
     if other_launches["tttp"] == 0 or other_launches["mttkrp"] == 0:
         raise SystemExit("tttp_mttkrp route did not launch its kernels")
     for d, (a, b) in enumerate(zip(other.factors, run.sweep_factors[0])):
@@ -1527,7 +1530,8 @@ def phase_solvers(torch, run):
     # search, N curvature TTTPs of the per-mode pass, two accept/reject
     # objectives; the MTTKRP for the gradients, N per joint matvec, and the
     # gradient and diagonal of each mode; the fused matvec (1 + joint) ×
-    # N × precond in the preconditioner and N × (1 + cg) in the per-mode pass
+    # N × precond in the preconditioner and N × (1 + cg) in the per-mode
+    # pass at most (its CG stops once no row is active)
     expect = {"tttp": 1 + nd * JOINT_ITERS + 12 + nd + 2,
               "mttkrp": nd + nd * JOINT_ITERS + 2 * nd,
               "cg_matvec": (1 + JOINT_ITERS) * nd * PRECOND_ITERS
@@ -1885,11 +1889,16 @@ def phase_restart(torch, ds, spec, tmp):
     got = RestartableLoop(cut, counted, ckpt_every=every).run(state0, sweeps)
     torch.cuda.synchronize()
     launches = kops.launch_counts()
-    want = {"tttp": 0, "mttkrp": len(DIMS),
-            "cg_matvec": len(DIMS) * (1 + spec.cg_iters)}
+    # one sweep: an MTTKRP a mode, and 1 + the iterations CG ran fused
+    # matvecs a mode, at most 1 + cg_iters
+    nd = len(DIMS)
+    want = {"tttp": 0, "mttkrp": nd,
+            "cg_matvec": f"{nd + 1}..{nd * (1 + spec.cg_iters)}"}
     log(f"  raised {raised!r}; resumed from step {every - 1}, ran sweeps "
         f"{ran}, launches {launches} (one sweep: {want})")
-    if ran != [every] or launches != want:
+    if ran != [every] or launches["tttp"] != 0 \
+            or launches["mttkrp"] != nd \
+            or not nd < launches["cg_matvec"] <= nd * (1 + spec.cg_iters):
         raise SystemExit(f"phase 7c: the resumed loop ran {ran} with "
                          f"launches {launches}, expected [{every}] and {want}")
     for d, (a, b) in enumerate(zip(get(got), get(whole))):
@@ -2530,14 +2539,18 @@ def phase_planner(torch, run):
                          f"{counts['planner als auto']}, the fused sweep "
                          f"{per_sweep}")
     h = pcost._sliced_h(RANK)
-    matvecs = 3 * (1 + CG_ITERS)
     sliced, counts["planner als sliced"] = planner_sweep(torch, run,
                                                          "sliced")
+    # h column slices of TTTP and of the MTTKRP a matvec, for the 1 + the
+    # iterations CG ran matvecs a mode (at most 1 + CG_ITERS)
+    n = counts["planner als sliced"]
+    matvecs = (n["tttp"] - 2) // h
     want = {"tttp": 2 + h * matvecs, "mttkrp": 3 + h * matvecs,
             "cg_matvec": 0}
-    if counts["planner als sliced"] != want:
+    if n != want or not 3 < matvecs <= 3 * (1 + CG_ITERS):
         raise SystemExit(f"phase 9a: --matvec-path sliced launched "
-                         f"{counts['planner als sliced']}, expected {want}")
+                         f"{n}, expected {want} with 3 < {matvecs} <= "
+                         f"{3 * (1 + CG_ITERS)} matvecs")
     for name, other, rtol in (("auto", auto, 1e-4), ("sliced", sliced, 1e-3)):
         for d, (a, b) in enumerate(zip(other.factors, run.sweep_factors[0])):
             scale = float(b.abs().max())
@@ -3098,7 +3111,8 @@ def phase_tiles(torch, run):
 # ---------------------------------------------------------------------------
 
 # an ALS sweep all-reduces over the data axis once per MTTKRP and once per
-# fused matvec: per mode b, CG's first residual and CG_ITERS iterations
+# fused matvec: per mode b, CG's first residual and the iterations CG ran,
+# at most CG_ITERS
 DIST_ALS_ALL_REDUCES = 3 * (1 + 1 + CG_ITERS)
 # 11b: every algorithm at 7e's dims; sgd on the model axis (the data axis
 # of size 1 draws the LOCAL sample) with a rank the axis divides
@@ -3200,10 +3214,13 @@ def phase_dist_main(torch, ref):
                 raise SystemExit(f"phase 11a: {label} rank {r} did not "
                                  f"launch {missing}")
             per = [c["all_reduce"] for c in run.sweep_collectives]
-            if per != [DIST_ALS_ALL_REDUCES] * SWEEPS:
+            want = [3 + n["cg_matvec"] for n in run.sweep_launches]
+            if per != want or len(per) != SWEEPS \
+                    or max(per) > DIST_ALS_ALL_REDUCES:
                 raise SystemExit(
                     f"phase 11a: {label} rank {r} all-reduced {per} times "
-                    f"per sweep, not {DIST_ALS_ALL_REDUCES} (3 x (1 + 1 + "
+                    f"per sweep, not {want} (3 + its fused matvecs, at "
+                    f"most {DIST_ALS_ALL_REDUCES} = 3 x (1 + 1 + "
                     f"{CG_ITERS}))")
         held_rmse(label, errors(mr.runs[0]), ref["rmse"], DIST_TOL)
         held_factors(torch, label, mr.runs[0].factors, ref["factors"], 1e-3)

@@ -18,15 +18,20 @@ planner's candidates (``auto``, ``sliced``, ``dense``) run the matvec
 through ``planner.planned_cg_matvec``, and ``mttkrp_path`` forces the
 MTTKRP contractions onto a planner candidate.
 
-CG runs a fixed ``max_iters`` iterations with no host synchronisation.
-The reference stops as soon as every row has converged; here converged rows
-are frozen by the same masks (``alpha = beta = 0`` leaves x and r exactly
-unchanged) and the loop goes on, so the factors are the same. The count of
-iterations in which some row was still active stays on the device; while
-tracing is live, outside graph capture, each solve adds its budget and that
-count to the ``obs`` counters ``cg/iterations`` and
-``cg/active_iterations``. A mode's update runs in the device-timed spans
-``als/rhs`` (the right-hand side's MTTKRP) and ``als/cg``.
+CG stops at the first iteration in which no row is still active, as the
+reference's ``while_loop`` does: one host read of that flag an iteration,
+the only wait a CG step has. Converged rows are frozen by masks before
+then (``alpha = beta = 0`` leaves x and r exactly unchanged), so the
+factors are those of the full budget, bit for bit. Where a fixed launch
+sequence is needed (the caller's ``out`` buffers, which fold-in's CUDA
+graphs replay, or a graph being captured) the loop runs all ``max_iters``
+iterations with no host read. The count of iterations in which some row
+was still active stays on the device; while tracing is live, outside
+graph capture, each solve adds the iterations it ran and that count to the
+``obs`` counters ``cg/iterations`` and ``cg/active_iterations``, and one
+to ``cg/early_exits`` when it stopped before its budget. A mode's update
+runs in the device-timed spans ``als/rhs`` (the right-hand side's MTTKRP)
+and ``als/cg``.
 """
 from __future__ import annotations
 
@@ -117,13 +122,21 @@ def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
                 ctx: AxisCtx = LOCAL, out=None):
     """Preconditioned batched-rows CG on SPD systems; rows converge
     independently and converged rows (residual² ≤ tol²·‖b_row‖²) are frozen
-    by masking. Runs ``max_iters`` iterations (see the module docstring).
-    Returns ``(x, iters)`` with ``iters`` a device tensor: the iterations in
-    which some row was active, the reference's trip count. ``out`` (x of
-    x0's shape, a 0-d int32 count) receives both, the last step writing x
-    into it: the same launches, into the caller's buffers."""
+    by masking. Stops before the matvec of the first iteration in which no
+    row is active, so the matvec runs 1 + ``iters`` times; with ``out``
+    given, or under graph capture, runs all ``max_iters`` (see the module
+    docstring). Returns ``(x, iters)`` with ``iters`` a device tensor: the
+    iterations in which some row was active, the reference's trip count.
+    ``out`` (x of x0's shape, a 0-d int32 count) receives both, the last
+    step writing x into it: the same launches, into the caller's buffers.
+
+    Under a data or model axis every rank leaves on the same iteration, as
+    the collectives inside the next matvec need: ``rs`` is psummed over
+    the model axis and the matvec over the data axis, so every rank holds
+    the same bits and reads the same flag, with no collective of its own."""
     if precond is None:
         precond = lambda v: v  # noqa: E731
+    early_exit = out is None and not obs.capturing()
     bnorm2 = rowdot_ctx(b, b, ctx)
     thresh = (tol ** 2) * torch.clamp(bnorm2, min=1e-30)
     x = x0
@@ -138,9 +151,15 @@ def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
         iters = out[1].zero_()
         if max_iters == 0:
             x = out[0].copy_(x0)
+    ran = 0
     for k in range(max_iters):
         active = rs > thresh
-        iters += active.any()
+        any_active = active.any()
+        # the one host read a CG iteration waits for
+        if early_exit and not bool(any_active):
+            break
+        iters += any_active
+        ran += 1
         ap = matvec(p)
         pap = rowdot_ctx(p, ap, ctx)
         alpha = torch.where(active, rz / torch.where(pap > 0, pap, 1.0), 0.0)
@@ -156,8 +175,10 @@ def batched_pcg(matvec, b: torch.Tensor, x0: torch.Tensor, precond=None,
         p = z + beta[:, None] * p
         rz = rz_new
         rs = rowdot_ctx(r, r, ctx)
-    obs.counter_add("cg/iterations", max_iters)
+    obs.counter_add("cg/iterations", ran)
     obs.counter_add("cg/active_iterations", iters)
+    if ran < max_iters:
+        obs.counter_add("cg/early_exits", 1)
     return x, iters
 
 

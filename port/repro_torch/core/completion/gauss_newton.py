@@ -25,10 +25,13 @@ paper's eq.-3 Gram matvec with the curvature ω as weights. One iteration
 Every H_dd matvec is :func:`als.gram_matvec` on the curvature tensor
 ``w_st``: on the card the fused CG-matvec kernel with weights ω (or TTTP +
 MTTKRP, or a planner candidate, by ``matvec_path``), over ``w_st``'s bucket
-view, which ``row_buckets`` gathers once per mode and tensor. As in the reference there
-is no host synchronisation: the damping and the step α stay 0-d device
-tensors, the line search takes ``argmin`` on the device, accept/reject is
-``torch.where`` and every solver runs a fixed trip count.
+view, which ``row_buckets`` gathers once per mode and tensor. As in the reference the
+damping and the step α stay 0-d device tensors, the line search takes
+``argmin`` on the device and accept/reject is ``torch.where``. The joint
+flexible PCG and its block-Jacobi preconditioner run fixed trip counts, as
+the reference's do; the per-mode pass's batched CG (``als.batched_pcg``)
+stops, as the reference's does, at the first iteration in which no row is
+active, its one host read an iteration.
 
 While tracing is live an iteration's phases run in device-timed ``obs``
 spans: ``ggn/curvature`` (ω and the model values), ``ggn/gradient``,

@@ -29,7 +29,7 @@ from repro.core.sparse_tensor import SparseTensor as JSparseTensor
 PORT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "port")
 sys.path.insert(0, PORT)
 
-from repro_torch import interop
+from repro_torch import interop, obs
 from repro_torch.core.completion import als
 from repro_torch.core.completion import sgd
 from repro_torch.launch import complete
@@ -179,9 +179,10 @@ def test_explicit_baseline_matches_reference_and_implicit_cg():
 
 
 def test_batched_cg_fixed_trip_matches_early_exit():
-    """The port runs max_iters iterations with converged rows frozen; the
-    reference's while-loop stops when all rows converge. Same x, and the
-    port's device counter gives the reference's trip count."""
+    """The port stops, as the reference's while-loop does, at the first
+    iteration in which no row is active (converged rows frozen before
+    then). Same x, and the port's device counter gives the reference's
+    trip count."""
     rng = np.random.default_rng(3)
     n, r = 40, 6
     a = rng.standard_normal((n, r, r)).astype(np.float32)
@@ -196,6 +197,99 @@ def test_batched_cg_fixed_trip_matches_early_exit():
                                 torch.from_numpy(x0), tol=1e-5, max_iters=40)
     assert int(titers) == int(jiters) < 40
     np.testing.assert_allclose(tx.numpy(), np.asarray(jx), **TOL)
+
+
+def _staggered_spd(seed=5, n=30, r=6):
+    """SPD systems whose rows converge at different CG iterations: a
+    multiple of the identity (one step), two distinct eigenvalues (two
+    steps), and general SPD blocks (up to r steps)."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, r, r))
+    spd = np.einsum("nij,nkj->nik", a, a) + 0.5 * np.eye(r)
+    third = n // 3
+    spd[:third] = 3.0 * np.eye(r)
+    q, _ = np.linalg.qr(rng.standard_normal((r, r)))
+    two = np.diag([1.0] * (r // 2) + [4.0] * (r - r // 2))
+    spd[third:2 * third] = q @ two @ q.T
+    spd = torch.from_numpy(spd.astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((n, r)).astype(np.float32))
+    calls = []
+
+    def mv(x):
+        calls.append(1)
+        return torch.einsum("nij,nj->ni", spd, x)
+    return mv, b, calls
+
+
+def _cg_counters(fn):
+    """``fn()``'s result and what it added to the ``cg/`` counters."""
+    obs.get_registry().reset()
+    obs.enable()
+    try:
+        got = fn()
+        counters = obs.get_registry().summary()["counters"]
+    finally:
+        obs.disable()
+        obs.get_registry().reset()
+    return got, {k: counters.get(k, 0.0) for k in
+                 ("cg/iterations", "cg/active_iterations", "cg/early_exits")}
+
+
+def test_batched_cg_early_exit_equals_fixed_trip_bit_for_bit():
+    """The early exit gives the fixed trip's x (run through ``out``, as
+    fold-in's graphs run it) bit for bit and the same ``iters``, and runs
+    the matvec 1 + ``iters`` times against the fixed trip's
+    1 + ``max_iters``; the rows converge at different iterations."""
+    mv, b, calls = _staggered_spd()
+    x0, budget = torch.zeros_like(b), 30
+    (x, iters), counters = _cg_counters(
+        lambda: als.batched_cg(mv, b, x0, tol=1e-5, max_iters=budget))
+    early_calls = len(calls)
+    calls.clear()
+    out = (torch.empty_like(b), torch.zeros((), dtype=torch.int32))
+    fx, fiters = als.batched_cg(mv, b, x0, tol=1e-5, max_iters=budget,
+                                out=out)
+    assert fx is out[0] and fiters is out[1]
+    assert 2 < int(iters) == int(fiters) < budget
+    assert torch.equal(x, fx)
+    assert early_calls == 1 + int(iters) and len(calls) == 1 + budget
+    assert counters == {"cg/iterations": int(iters),
+                        "cg/active_iterations": int(iters),
+                        "cg/early_exits": 1}
+    # a few iterations in, some rows are done and others are not
+    part, _ = als.batched_cg(mv, b, x0, tol=1e-5, max_iters=2)
+    res = torch.linalg.vector_norm(b - mv(part), dim=1) \
+        / torch.linalg.vector_norm(b, dim=1)
+    assert bool((res <= 1e-5).any()) and bool((res > 1e-5).any())
+
+
+@pytest.mark.parametrize("case", ["no_budget", "converged_start",
+                                  "short_budget"])
+def test_batched_cg_early_exit_edge_cases(case):
+    """``max_iters`` 0 runs no iteration; a start that has already
+    converged stops before the first (an early exit, 0 iterations); a
+    budget too short to converge runs all of it and records no early
+    exit. Each equals the fixed trip through ``out`` bit for bit, and
+    runs the matvec 1 + ``iters`` times."""
+    mv, b, calls = _staggered_spd()
+    budget, x0 = {"no_budget": (0, torch.zeros_like(b)),
+                  "converged_start": (10, b.clone()),
+                  "short_budget": (2, torch.zeros_like(b))}[case]
+    if case == "converged_start":
+        b = mv(x0)            # r = b − A x0 is exactly 0
+        calls.clear()
+    (x, iters), counters = _cg_counters(
+        lambda: als.batched_cg(mv, b, x0, tol=1e-5, max_iters=budget))
+    want_iters = {"no_budget": 0, "converged_start": 0,
+                  "short_budget": budget}[case]
+    assert int(iters) == want_iters and len(calls) == 1 + want_iters
+    assert counters == {"cg/iterations": want_iters,
+                        "cg/active_iterations": want_iters,
+                        "cg/early_exits": int(case == "converged_start")}
+    out = (torch.empty_like(b), torch.zeros((), dtype=torch.int32))
+    fx, fiters = als.batched_cg(mv, b, x0, tol=1e-5, max_iters=budget,
+                                out=out)
+    assert torch.equal(x, fx) and int(fiters) == want_iters
 
 
 def test_gram_matvec_planner_options_match_reference():

@@ -424,6 +424,43 @@ def test_ggn_sweep_on_card_matches_plain_path(dev, path):
 
 
 @pytest.mark.cuda
+def test_batched_cg_early_exit_on_card_equals_fixed_trip(dev):
+    """Over the fused matvec on the card, CG's early exit gives the x and
+    ``iters`` of the fixed trip, run into ``out`` buffers and captured in
+    a graph, bit for bit, and launches the fused matvec 1 + ``iters``
+    times against the fixed trip's 1 + ``max_iters``."""
+    st, fs = _problem(dev, 4, (40, 30, 20), 4000, 8)
+    omega = st.with_values(torch.ones_like(st.values))
+    mv = lambda x: als.gram_matvec(omega, fs, 0, x, 1e-3,  # noqa: E731
+                                   matvec_path="fused")
+    g = torch.Generator().manual_seed(4)
+    b = torch.randn(40, 8, generator=g).to(dev)
+    x0, budget = torch.zeros_like(b), 60
+    kops.reset_launch_counts()
+    x, iters = als.batched_cg(mv, b, x0, tol=1e-4, max_iters=budget)
+    assert kops.launch_counts()["cg_matvec"] == 1 + int(iters)
+    assert 0 < int(iters) < budget
+    out = (torch.empty_like(b),
+           torch.zeros((), dtype=torch.int32, device=dev))
+    kops.reset_launch_counts()
+    fx, fiters = als.batched_cg(mv, b, x0, tol=1e-4, max_iters=budget,
+                                out=out)
+    assert kops.launch_counts()["cg_matvec"] == 1 + budget
+    assert torch.equal(fx, x) and int(fiters) == int(iters)
+    graph = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        with torch.cuda.graph(graph):
+            gx, giters = als.batched_cg(mv, b, x0, tol=1e-4,
+                                        max_iters=budget)
+    torch.cuda.current_stream().wait_stream(s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(gx, x) and int(giters) == int(iters)
+
+
+@pytest.mark.cuda
 def test_ccd_sweep_tttp_on_card_matches_plain_path(dev):
     """One CCD++ sweep through the TTTP kernel on vector factors: 2 TTTP
     launches per column update (2·N·R), and the factors and residual of the
@@ -646,9 +683,13 @@ def test_replays_count_the_launches_of_eager_calls(dev):
     model = interop.serving_model_from_numpy(arrays, device=dev)
     st = foldin.pack_histories(hists, model.shape, 0, device=dev)
     kops.reset_launch_counts()
-    foldin.fold_in(st, model.factors, 0)
-    eager_fold = kops.launch_counts()
-    assert eager_fold == {"tttp": 0, "mttkrp": 1, "cg_matvec": 1 + 128}
+    _, iters = foldin.fold_in(st, model.factors, 0)
+    # an eager solve stops once no row is active; the engine's solve runs
+    # its whole budget into the rows' buffer, which its graph replays
+    assert kops.launch_counts() == {"tttp": 0, "mttkrp": 1,
+                                    "cg_matvec": 1 + int(iters)}
+    assert int(iters) < 128
+    eager_fold = {"tttp": 0, "mttkrp": 1, "cg_matvec": 1 + 128}
     eng = serve.ServeEngine(model, device=dev)
     n = 5
     kops.reset_launch_counts()

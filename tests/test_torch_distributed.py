@@ -51,6 +51,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 LAM = 1e-6
 CG_ITERS = 12
 GGN_ITERS = dict(cg_iters=6, joint_iters=4, precond_iters=3)
+GGN_MODE_ITERS = 40
 # (grid of the data x model checks); every check of the world axis at P
 GRIDS = [(2, 1), (2, 2), (4, 2)]
 
@@ -62,7 +63,7 @@ _RANKS = textwrap.dedent('''
     import torch.multiprocessing as mp
 
     sys.path.insert(0, os.environ["REPRO_PORT"])
-    from repro_torch import interop
+    from repro_torch import interop, obs
     from repro_torch.core import collectives as coll
     from repro_torch.core import losses
     from repro_torch.core.completion import als, gauss_newton as ggn
@@ -83,6 +84,16 @@ _RANKS = textwrap.dedent('''
         return torch.from_numpy(np.ascontiguousarray(a, np.float32))
 
 
+    def solve_iters():
+        """The iterations each CG solve since the last call ran (the
+        ``cg/iterations`` bumps of the live registry), then a fresh log."""
+        reg = obs.get_registry()
+        got = [v for n, _, v in reg.counter_log("cg/")
+               if n == "cg/iterations"]
+        reg.reset()
+        return np.array(got, np.int64)
+
+
     def checks(z, grid):
         out = {}
         lay = DistLayout(grid, ("data",), "model")
@@ -98,9 +109,12 @@ _RANKS = textwrap.dedent('''
         x0 = lay.factor_cols(f32(z["x0"]))
         out["gram"] = als.gram_matvec(omega, fs, 0, x0, LAM, ctx=ctx,
                                       matvec_path="auto").numpy()
+        obs.enable()
+        solve_iters()
         for d, f in enumerate(als.als_sweep(st, omega, fs, LAM,
                                             cg_iters=CG_ITERS, ctx=ctx)):
             out[f"als{d}"] = f.numpy()
+        out["als_iters"] = solve_iters()
         out["collectives"] = np.array([coll.counts()[k] for k in
                                        ("all_reduce", "bytes")])
         st64 = lay.shard(sparse(z, "st_", np.float64))
@@ -112,6 +126,12 @@ _RANKS = textwrap.dedent('''
             for d, f in enumerate(g64.factors):
                 out[f"ggn{it}_{d}"] = f.numpy()
             out[f"ggn{it}_damping"] = g64.damping.numpy()
+        # a damped per-mode pass with room to stop inside its budget
+        out["ggn_mode"] = ggn.ggn_update_mode(
+            st64, list(g64.factors), 0, losses.LOSSES["poisson_log"], LAM,
+            1e-3, cg_iters=GGN_MODE_ITERS, ctx=ctx).numpy()
+        out["ggn_iters"] = solve_iters()
+        obs.disable()
 
         # the world as one data axis: row-sharded factors (paper Fig. 2)
         world = DistLayout((dist.get_world_size(),), ("data",), None,
@@ -151,6 +171,7 @@ _RANKS = textwrap.dedent('''
 
     LAM, CG_ITERS = float(os.environ["T_LAM"]), int(os.environ["T_CG"])
     GGN_ITERS = dict(cg_iters=6, joint_iters=4, precond_iters=3)
+    GGN_MODE_ITERS = 40
 
 
     def rank_main(rank, world, grid, inp, outdir):
@@ -286,6 +307,9 @@ def _reference(z):
             for d, f in enumerate(state.factors):
                 want[f"ggn{it}_{d}"] = np.asarray(f)
             want[f"ggn{it}_damping"] = np.asarray(state.damping)
+        want["ggn_mode"] = np.asarray(jggn.ggn_update_mode(
+            st64, list(state.factors), 0, jlosses.LOSSES["poisson_log"],
+            LAM, 1e-3, cg_iters=GGN_MODE_ITERS))
     rs = _jst(z, "rs_")
     rows = [jnp.asarray(z[f"rf{d}"]) for d in range(3)]
     # the port's multilinear values are 0 on padding slots
@@ -336,8 +360,40 @@ def test_data_model_axes_match_local_reference(tmp_path_factory, grid):
             assert float(r[f"ggn{it}_damping"]) == \
                 float(want[f"ggn{it}_damping"])
     # the collectives were counted: a data axis all-reduces every MTTKRP
+    # and every matvec the CG ran (1 + its iterations a mode)
     n_reduce, n_bytes = ranks[0]["collectives"]
-    assert n_reduce > 3 * CG_ITERS and n_bytes > 0
+    assert n_reduce >= 2 * 3 + int(ranks[0]["als_iters"].sum())
+    assert n_bytes > 0
+
+
+CG_GRIDS = [(2, 1), (1, 2)]
+
+
+@pytest.mark.parametrize("grid", CG_GRIDS,
+                         ids=[f"{a}x{b}" for a, b in CG_GRIDS])
+def test_cg_stops_on_the_same_iteration_on_every_rank(tmp_path_factory,
+                                                      grid):
+    """Under a data axis and under a model axis, every rank's CG stops on
+    the same iteration (no rank waits in a matvec's collective the others
+    never issue): ALS's three solves and GGN's damped per-mode passes run
+    the same iteration counts on every rank, some stopping inside their
+    budgets, and the factors match the reference's LOCAL runs."""
+    z, ranks, want = _results(tmp_path_factory, grid)
+    for key in ("als_iters", "ggn_iters"):
+        for r in ranks:
+            np.testing.assert_array_equal(r[key], ranks[0][key],
+                                          err_msg=key)
+    als_iters, ggn_iters = ranks[0]["als_iters"], ranks[0]["ggn_iters"]
+    assert len(als_iters) == 3 and (als_iters < CG_ITERS).all()
+    assert len(ggn_iters) == 2 * 3 + 1
+    assert 0 < ggn_iters[-1] < GGN_MODE_ITERS
+    for key in ("als0", "als1", "als2"):
+        np.testing.assert_allclose(_by_model(ranks, key), want[key],
+                                   err_msg=key, **TOL)
+    for key in [f"ggn{it}_{d}" for it in range(2) for d in range(3)] + \
+            ["ggn_mode"]:
+        np.testing.assert_allclose(_by_model(ranks, key), want[key],
+                                   rtol=1e-8, atol=1e-8, err_msg=key)
 
 
 @pytest.mark.parametrize("grid", GRIDS, ids=[f"{a * b}" for a, b in GRIDS])

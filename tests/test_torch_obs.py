@@ -196,9 +196,9 @@ def test_experiment_trace_rides_the_report(tmp_path):
     assert spans.count("loop/step/sweep/als/cg") == 6
     assert [p for p in spans if "/als/" not in p] == \
         ["loop/step/sweep", "loop/step"] * 2
-    # per sweep: the MTTKRP under each planner span, 1 + cg_iters fused
-    # matvecs per mode, and three TTTPs after the sweep (the objective and
-    # the train and held-out metrics)
+    # per sweep: the MTTKRP under each planner span, 1 + the iterations CG
+    # ran fused matvecs per mode, and three TTTPs after the sweep (the
+    # objective and the train and held-out metrics)
     assert sorted(set(kernel)) == [
         "loop/step/kernel/tttp",
         "loop/step/sweep/als/cg/kernel/cg_matvec_bucketed",
@@ -206,15 +206,17 @@ def test_experiment_trace_rides_the_report(tmp_path):
         "mttkrp_bucketed"]
     assert kernel.count("loop/step/sweep/als/rhs/planner/mttkrp/all_at_once/"
                         "kernel/mttkrp_bucketed") == 6
-    assert kernel.count("loop/step/sweep/als/cg/kernel/"
-                        "cg_matvec_bucketed") == 2 * 3 * (1 + spec.cg_iters)
-    assert kernel.count("loop/step/kernel/tttp") == 2 * 3
-    # each CG counts its budget and the iterations some row was active in;
-    # the planner counts a miss per mode's first MTTKRP, then hits
     counters = report["obs"]["counters"]
-    assert counters["cg/iterations"] == 2 * 3 * spec.cg_iters
-    assert 2 * 3 <= counters["cg/active_iterations"] <= \
-        counters["cg/iterations"]
+    assert kernel.count("loop/step/sweep/als/cg/kernel/"
+                        "cg_matvec_bucketed") == \
+        2 * 3 + counters["cg/iterations"]
+    assert kernel.count("loop/step/kernel/tttp") == 2 * 3
+    # each CG counts the iterations it ran, each one with some row active
+    # (at R = 3 every solve stops well inside its budget), and an early
+    # exit; the planner counts a miss per mode's first MTTKRP, then hits
+    assert 2 * 3 <= counters["cg/active_iterations"] == \
+        counters["cg/iterations"] < 2 * 3 * spec.cg_iters
+    assert counters["cg/early_exits"] == 2 * 3
     assert counters["planner/plan_cache/misses"] == 3
     assert counters["planner/plan_cache/hits"] == 3
     # the spans timed on the device (the host's clock on the CPU)
@@ -409,8 +411,60 @@ def test_no_span_or_counter_waits_for_the_device(monkeypatch):
             "ggn/line_search", "ggn/mode_cg", "ggn/accept", "complete/rmse",
             "serve/fold_in/pack", "serve/fold_in/bucket_pattern",
             "serve/readback", "kernel/cg_matvec_bucketed"} <= names
-    counters = reg.summary()["counters"]
-    # ALS: three modes of 5; GGN: three damped passes of 5; fold-in: its
-    # eager solve (no graph on the CPU) of max(4R, 32)
-    assert counters["cg/iterations"] == 3 * 5 + 3 * 5 + 32
-    assert 0 < counters["cg/active_iterations"] <= counters["cg/iterations"]
+    reg.summary()
+    # ALS: three modes of at most 5; GGN: three damped passes of at most
+    # 5, each the iterations it ran, all with some row active; fold-in: its
+    # solve into the rows' buffer (no graph on the CPU), the whole budget
+    # of max(4R, 32)
+    solves = _solves(reg.counter_log("cg/"))
+    assert len(solves) == 3 + 3 + 1
+    for c in solves[:6]:
+        assert 0 < c["cg/iterations"] == c["cg/active_iterations"] <= 5
+        assert c.get("cg/early_exits", 0) == int(c["cg/iterations"] < 5)
+    assert solves[6]["cg/iterations"] == 32
+    assert 0 < solves[6]["cg/active_iterations"] <= 32
+    assert "cg/early_exits" not in solves[6]
+
+
+def _solves(log):
+    """The ``cg/`` counter log split into one dict a solve (each solve's
+    bumps start with ``cg/iterations``)."""
+    solves = []
+    for name, _, value in log:
+        if name == "cg/iterations":
+            solves.append({})
+        solves[-1][name] = solves[-1].get(name, 0) + value
+    return solves
+
+
+def test_eager_solves_count_the_iterations_they_ran():
+    """With tracing live an eager ALS solve adds the iterations it ran to
+    both ``cg/iterations`` and ``cg/active_iterations`` and one early exit
+    when it stops inside its budget; the serve engine's fold-in, which
+    solves into the rows' buffer, adds its whole budget and no early
+    exit."""
+    from repro_torch.core.completion import als
+    from repro_torch.serve import ServeEngine, ServingModel, foldin
+    g = torch.Generator().manual_seed(5)
+    shape, nnz, r, budget = (30, 20, 10), 1500, 4, 30
+    idx = torch.stack([torch.randint(0, n, (nnz,), generator=g)
+                       for n in shape], 1).to(torch.int32)
+    st = SparseTensor.from_coo(idx, torch.rand(nnz, generator=g) + 0.5,
+                               shape)
+    omega = st.with_values(torch.ones_like(st.values))
+    fs = [torch.randn(n, r, generator=g) / r for n in shape]
+    obs.enable()
+    als.als_update_mode(st, omega, fs, 0, 1e-3, cg_iters=budget)
+    (solve,) = _solves(obs.get_registry().counter_log("cg/"))
+    assert 0 < solve["cg/iterations"] == solve["cg/active_iterations"] \
+        < budget
+    assert solve["cg/early_exits"] == 1
+    eng = ServeEngine(ServingModel([f.clone() for f in fs]), device="cpu")
+    hist = [(np.stack([np.arange(5) % 20, np.arange(5) % 10], 1),
+             np.ones(5, np.float32)) for _ in range(3)]
+    eng.fold_in(hist, 0)
+    solves = _solves(obs.get_registry().counter_log("cg/"))
+    assert len(solves) == 2
+    assert solves[1]["cg/iterations"] == foldin.cg_budget(r)
+    assert "cg/early_exits" not in solves[1]
+    assert obs.get_registry().summary()["counters"]["cg/early_exits"] == 1
