@@ -1,13 +1,15 @@
 """Completion cells: sweeps of one solver on the function tensor, from the
-seed's start, back to back.
+deployment's start, back to back.
 
 The window drives what ``launch.complete.run_solver`` drives:
 ``core.completion.make_step``'s step, fenced by a device synchronisation,
 then ``launch.complete.rmse`` (and for GGN the objective, and the damping
 read back), as each sweep line of the CLI needs them. Set-up makes the
-tensor and the initial factors on the card (the tensor's indices from the
-configuration's ``index_seed``, the same for every seed; its values and
-the factors from the seed), ingests them
+tensor and the initial factors on the card from the configuration's
+``index_seed`` alone (the tensor's indices, its values' grids and the
+factors, each from a stream of its own), so that every seed gives the
+solver the same problem; the seed draws the ingest's shuffle, the order
+in which the program holds the entries. It ingests them
 (``data.pipeline.CompletionDataset``), builds the step and runs the
 traffic's ``compare_sweeps`` first sweeps through the same call; their
 factors, RMSE, objective and damping are the answers the reference checks.
@@ -24,6 +26,9 @@ import torch
 from tcbench import gen
 from tcbench.loop import free
 from tcbench.reference import common as C
+
+# the program span logged once a window step: the RMSE that each sweep reads
+CALL_SPAN = "complete/rmse"
 
 
 class Entry:
@@ -53,15 +58,12 @@ class Entry:
 
     # -- inputs --------------------------------------------------------------
     def inputs(self):
-        dev = self.cell.device
+        dev, fixed = self.cell.device, self.cell.config["index_seed"]
         idx, vals = gen.function_tensor(
-            self.shape, self.nnz,
-            gen.device_generator(self.cell.config["index_seed"], "tensor",
-                                 dev),
-            gen.device_generator(self.cell.seed, "tensor", dev))
-        fs = gen.normal_factors(
-            self.shape, self.rank,
-            gen.device_generator(self.cell.seed, "factors", dev))
+            self.shape, self.nnz, gen.device_generator(fixed, "tensor", dev),
+            gen.device_generator(fixed, "values", dev))
+        fs = gen.normal_factors(self.shape, self.rank,
+                                gen.device_generator(fixed, "factors", dev))
         return idx, vals, fs
 
     # -- the program ---------------------------------------------------------

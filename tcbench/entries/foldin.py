@@ -22,6 +22,10 @@ from tcbench import gen
 from tcbench.loop import ClosedLoop, free
 from tcbench.reference import common as C
 
+# the program span logged once a window step: the packing of a call's
+# histories
+CALL_SPAN = "serve/fold_in/pack"
+
 
 class Entry(ClosedLoop):
     SPAN = "tcbench.fold_in"

@@ -17,6 +17,10 @@ from tcbench import gen
 from tcbench.loop import ClosedLoop, free
 from tcbench.reference import common as C
 
+# the program span logged once a window step: the padding of a call's
+# queries
+CALL_SPAN = "serve/top_k/pad"
+
 
 class Entry(ClosedLoop):
     SPAN = "tcbench.top_k"

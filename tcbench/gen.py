@@ -1,14 +1,15 @@
 """Input generators, frozen for the benchmark: the same seed gives the same
 inputs whatever a later change does to the program's own generators.
 
-Every stream of random numbers is derived from ``--seed`` and a purpose
-(:func:`derive`), so the tensor's values, the initial factors, the
-program's ingest shuffle, the request pool and the sample of checked
-answers are drawn independently and in the same way on every run of a
-seed. What a deployment fixes is drawn from seeds in its files, the same
-for every ``--seed``: the tensor's indices (a configuration's
-``index_seed``), and which id takes which popularity and how each pooled
-call orders its sizes (a traffic file's ``layout_seed``).
+Every stream of random numbers is derived from a seed and a purpose
+(:func:`derive`), so the tensor's indices and values, the initial
+factors, the program's ingest shuffle, the request pool and the sample of
+checked answers are drawn independently and in the same way on every run
+of a seed. What a deployment fixes is drawn from seeds in its files, the
+same for every ``--seed``: the function tensor, its values and the
+solver's start (a configuration's ``index_seed``), and which id takes
+which popularity and how each pooled call orders its sizes (a traffic
+file's ``layout_seed``).
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 # the purposes a run draws for; their order is part of the yardstick
-STREAMS = ("tensor", "factors", "ingest", "pool", "sample")
+STREAMS = ("tensor", "factors", "ingest", "pool", "sample", "values")
 
 
 def derive(seed: int, purpose: str) -> int:

@@ -1,25 +1,21 @@
 """Sizes at which the cells run on the CPU in the tests: the cells' own
-traffic and settings, on smaller extents."""
+traffic and settings, on the smaller extents that each cell's traffic file
+gives under ``small`` (``{"config": {...}, "traffic": {...}}``, keys of the
+cell's configuration and traffic file replaced). The run never reads
+``small``; a new cell brings its size in its own traffic file."""
 import copy
 
 import pytest
 import torch
 
-from tcbench import run, spec
+from tcbench import HERE, ROOT, run, spec
 
-SMALL = {
-    "function-312m.als": {"config": {"shape": [1000, 1000, 1000],
-                                     "nnz": 300000}},
-    "function-78m.ggn-poisson": {"config": {"shape": [1000, 1000, 1000],
-                                            "nnz": 300000}},
-    "netflix-r32.foldin": {"config": {"shape": [3000, 1777, 218]},
-                           "traffic": {"users_per_call": 64,
-                                       "pool_calls": 4, "check_share": 0.5}},
-    "netflix-r32.topk": {"config": {"shape": [3000, 1777, 218]},
-                         "traffic": {"queries_per_call": 64,
-                                     "pool_calls": 4, "check_share": 0.5}},
-}
+TRAFFIC = {w["name"]: spec.load_json(HERE / "traffic" / f"{w['name']}.json")
+           for w in spec.load_json(ROOT / "BENCHMARK.json")["workloads"]}
+SMALL = {name: t["small"] for name, t in TRAFFIC.items() if "small" in t}
 CELLS = sorted(SMALL)
+# the entry module each cell's window drives (``tcbench/entries/<entry>.py``)
+ENTRY = {name: TRAFFIC[name]["entry"] for name in CELLS}
 
 
 def small(cell):

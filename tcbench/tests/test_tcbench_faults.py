@@ -1,12 +1,22 @@
 """A run with its timed path broken underneath reads ``correct`` false:
 the harness's look for a card is skipped (the run goes to the CPU at a
-small size) and the rest of the run is driven as it stands. The cells run
-on one chip, so no exchange between chips can be left out."""
+small size) and the rest of the run is driven as it stands. The cells are
+the spec's, picked by the entry they drive: the solver cells (entry
+``completion``) and the serving cells (``foldin`` and ``topk``), whose
+faults are planted in this process. They run on one chip, so no exchange
+between chips can be left out; a cell on another entry brings the tests of
+its own faults in files of its own."""
 import numpy as np
 import pytest
 import torch
 
-from tcbench.tests.small import bench, execute
+from tcbench.tests.small import CELLS, ENTRY, bench, execute
+
+SOLVER_CELLS = [c for c in CELLS if ENTRY[c] == "completion"]
+# the engine's method that each serving entry calls
+SERVE_METHOD = {"foldin": "fold_in", "topk": "top_k"}
+SERVING_CELLS = [(c, SERVE_METHOD[ENTRY[c]]) for c in CELLS
+                 if ENTRY[c] in SERVE_METHOD]
 
 
 @pytest.fixture(autouse=True)
@@ -48,8 +58,7 @@ def _altered_row(monkeypatch):
     monkeypatch.setattr(comp, "make_step", make_step)
 
 
-@pytest.mark.parametrize("cell", ["function-312m.als",
-                                  "function-78m.ggn-poisson"])
+@pytest.mark.parametrize("cell", SOLVER_CELLS)
 @pytest.mark.parametrize("fault", [_unchanged, _half_entries, _altered_row])
 def test_broken_solver_reads_incorrect(monkeypatch, cell, fault):
     fault(monkeypatch)
@@ -81,8 +90,7 @@ def _serve_fault(monkeypatch, kind, method):
     monkeypatch.setattr(ServeEngine, method, broken)
 
 
-@pytest.mark.parametrize("cell,method", [("netflix-r32.foldin", "fold_in"),
-                                         ("netflix-r32.topk", "top_k")])
+@pytest.mark.parametrize("cell,method", SERVING_CELLS)
 @pytest.mark.parametrize("kind", ["stale", "half", "altered"])
 def test_broken_serving_reads_incorrect(monkeypatch, cell, method, kind):
     _serve_fault(monkeypatch, kind, method)

@@ -122,3 +122,30 @@ def test_topk_pool_is_deterministic_per_seed():
     assert p1.fixed[0].max() < 100 and p1.fixed[2].max() < 20
     # no two calls alike
     assert len({p1[i][0].tobytes() for i in range(5)}) == 5
+
+
+def _solver_inputs(cell, seed, index_seed=None):
+    from tcbench import run, spec
+    from tcbench.tests.small import small
+    c = spec.resolve(spec.load(), cell)
+    c.config.update(small(cell)["config"])
+    if index_seed is not None:
+        c.config["index_seed"] = index_seed
+    return c.entry.Entry(run.context(c, seed, "cpu",
+                                     run.Tracer(False))).inputs()
+
+
+def test_solver_cells_draw_one_problem_for_every_seed():
+    """A solver cell's tensor, values and start come from its
+    configuration's ``index_seed`` alone: every ``--seed`` gives the same
+    problem (so the same work), another ``index_seed`` another."""
+    from tcbench.tests.small import CELLS, ENTRY
+    cells = [c for c in CELLS if ENTRY[c] == "completion"]
+    assert cells
+    for cell in cells:
+        a, b = _solver_inputs(cell, 1), _solver_inputs(cell, BIG)
+        c = _solver_inputs(cell, 1, index_seed=5)
+        for x, y, z in zip(a[:2] + tuple(a[2]), b[:2] + tuple(b[2]),
+                           c[:2] + tuple(c[2])):
+            assert torch.equal(x, y)
+            assert x.shape == z.shape and not torch.equal(x, z)

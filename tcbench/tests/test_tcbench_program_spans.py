@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from tcbench import run, spec
-from tcbench.tests.small import CELLS, bench, small
+from tcbench.tests.small import CELLS, ENTRY, bench, small
 from tcbench.trace import Trace
 
 MS = 1_000_000
@@ -138,9 +138,9 @@ def test_traced_cpu_run_reads_the_new_metrics(cell, registry):
     but ``replay_idle_ms.serve`` (the CPU replays no graph). Fold-in's
     eager CG is counted once a call."""
     b = bench()
+    resolved = spec.resolve(b, cell)
     torch.manual_seed(0)
-    r = run.execute(b, spec.resolve(b, cell), 3000000021, 0.3, True, "cpu",
-                    small(cell))
+    r = run.execute(b, resolved, 3000000021, 0.3, True, "cpu", small(cell))
     assert r["correct"]
     named = [m for m in spec.per_layer_metrics(b, cell) if m in NEW]
     got = {m: r["metrics"][m]["value"] for m in named if m in r["metrics"]}
@@ -152,16 +152,12 @@ def test_traced_cpu_run_reads_the_new_metrics(cell, registry):
             assert 0 < v <= 100
     # the profiler alone made tracing live: set-up's calls and sweeps and
     # the reference ran without it, so only the window's calls are logged
-    calls = {"function-312m.als": "complete/rmse",
-             "function-78m.ggn-poisson": "complete/rmse",
-             "netflix-r32.foldin": "serve/fold_in/pack",
-             "netflix-r32.topk": "serve/top_k/pad"}[cell]
-    assert len(registry.spans(calls)) == r["attempted"]
+    assert len(registry.spans(resolved.entry.CALL_SPAN)) == r["attempted"]
     log = registry.counter_log("cg/")
-    if cell == "netflix-r32.foldin":
+    if ENTRY[cell] == "foldin":
         from repro_torch.serve import foldin
-        budget = foldin.cg_budget(spec.resolve(b, cell).config["rank"])
+        budget = foldin.cg_budget(resolved.config["rank"])
         assert sum(v for n, _, v in log if n == "cg/iterations") == \
             r["attempted"] * budget
-    if cell == "netflix-r32.topk":
+    if ENTRY[cell] == "topk":
         assert log == []

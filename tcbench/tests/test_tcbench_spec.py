@@ -33,6 +33,27 @@ def test_every_cell_configuration_and_metric_resolves_by_name():
             (m["layer"], m["unit"], m["moves"], m["source"])
 
 
+def test_every_cell_brings_its_small_size():
+    """Each cell's traffic file gives the CPU tests' size under ``small``:
+    only ``config`` and ``traffic``, each replacing keys that the cell's
+    configuration or traffic file has."""
+    b = spec.load()
+    for w in b["workloads"]:
+        cell = spec.resolve(b, w["name"])
+        own = {"config": cell.config,
+               "traffic": {k: v for k, v in cell.traffic.items()
+                           if k != "small"}}
+        small = cell.traffic.get("small")
+        assert isinstance(small, dict) and small, \
+            f"{w['name']}: its traffic file has no small object"
+        assert set(small) <= set(own), \
+            f"{w['name']}: small has keys {sorted(set(small) - set(own))}"
+        for part, keys in small.items():
+            assert isinstance(keys, dict) and set(keys) <= set(own[part]), \
+                f"{w['name']}: small {part} names keys the cell's " \
+                f"{part} lacks: {sorted(set(keys) - set(own[part]))}"
+
+
 def test_contract_limits_hold():
     b = spec.load()
     assert len(json.dumps(b)) <= 64 * 1024
